@@ -1,11 +1,15 @@
 """Coarsening: heavy-edge matching, two-hop matching and contraction (paper §3.1).
 
-Counterpart of the device mode of ``repro.core.coarsen``: each level is
-:func:`coarsen_level` (HEM rounds, the two-hop trigger, ``coarse_map``,
-``contract_edges`` and the coarse CSR build), re-bucketed along a geometric
-:func:`shape_schedule` of capacities.  The host reads three ints per level
-(termination and capacity) plus the two-hop trigger.  The reference's host
-mode (``coarsen_once``) is not ported yet.
+Counterpart of ``repro.core.coarsen``, with its two modes:
+
+* **device** (default): each level is :func:`coarsen_level` (HEM rounds,
+  the two-hop trigger, ``coarse_map``, ``contract_edges`` and the coarse
+  CSR build), re-bucketed along a geometric :func:`shape_schedule` of
+  capacities.  The host reads three ints per level (termination and
+  capacity) plus the two-hop trigger.
+* **host**: :func:`coarsen_once` repacks each coarse graph into tight
+  arrays with numpy on the host, as the reference's legacy mode does, and
+  moves it back to the caller's device.  Same hierarchy content.
 
 Hashes are 32-bit arithmetic done in int64 (``core/u32.py``); the int32
 wraparound of the seed mixing and of the twin hash is reproduced exactly.
@@ -16,9 +20,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.graph import Graph, csr_from_edge_runs
+from repro_torch.core.graph import Graph, csr_from_edge_runs, from_numpy_arrays
 from repro_torch.core.u32 import i32, mul32, u32
 
 _KNUTH = 2654435761
@@ -210,6 +215,47 @@ def _round_up(x: int, mult: int = 8) -> int:
     return ((x + mult - 1) // mult) * mult
 
 
+def coarsen_once(g: Graph, twohop_threshold: float = 0.25,
+                 mm_max_degree: int = 64, seed: int = 0):
+    """One coarsening level, legacy host-repack path.
+
+    Returns (coarse graph with tight capacities, cmap).  The coarse graph
+    is on ``g``'s device; the repack in between is host numpy.
+    """
+    match = heavy_edge_matching(g, seed=seed)
+    n = int(g.n)
+    unmatched = int(((match < 0) & g.vertex_mask()).sum())
+    # float32 on purpose, as the reference: the same trigger as coarsen_level
+    frac = np.float32(unmatched) / np.float32(max(n, 1))
+    if frac > np.float32(twohop_threshold):
+        match = twohop_matching(g, match, mm_max_degree, seed)
+    cmap, nc_dev = coarse_map(g, match)
+    cu_run, cv_run, w_run, _, n_runs_dev, vwgt_c = contract_edges(g, cmap)
+    nc, n_runs = torch.stack([nc_dev, n_runs_dev]).tolist()
+    cu = cu_run[:n_runs].cpu().numpy()
+    cv = cv_run[:n_runs].cpu().numpy()
+    w = w_run[:n_runs].cpu().numpy()
+    vw = vwgt_c[:nc].cpu().numpy()
+    n_max_c = _round_up(max(nc, 1))
+    m_max_c = _round_up(max(n_runs, 1))
+    xadj = np.zeros(n_max_c + 1, dtype=np.int64)
+    np.add.at(xadj, cu + 1, 1)
+    xadj = np.cumsum(xadj)
+    xadj_p = np.full(n_max_c + 1, n_runs, dtype=np.int32)
+    xadj_p[: nc + 1] = xadj[: nc + 1]
+    adjncy_p = np.zeros(m_max_c, dtype=np.int32)
+    adjncy_p[:n_runs] = cv
+    adjwgt_p = np.zeros(m_max_c, dtype=np.int32)
+    adjwgt_p[:n_runs] = w
+    vwgt_p = np.zeros(n_max_c, dtype=np.int32)
+    vwgt_p[:nc] = vw
+    esrc_p = np.zeros(m_max_c, dtype=np.int32)
+    esrc_p[:n_runs] = cu
+    gc = from_numpy_arrays(xadj_p, adjncy_p, adjwgt_p, vwgt_p, esrc_p, nc,
+                           n_runs, device=g.device)
+    return gc, cmap
+
+
 def coarsen_level(g: Graph, seed: int = 0, twohop_threshold: float = 0.25,
                   mm_max_degree: int = 64, hem_rounds: int = 8):
     """One whole coarsening level. Returns (coarse graph, cmap).
@@ -297,41 +343,52 @@ def multilevel_coarsen(
 
     ``levels[i].cmap`` maps level-i vertices into level-(i+1)'s graph; the
     last entry's cmap is None.  Every level carries host ``stats``.
+    ``mode="device"`` re-buckets each level along ``schedule``;
+    ``mode="host"`` repacks each level tightly with :func:`coarsen_once`.
     """
-    if mode == "host":
-        raise NotImplementedError(
-            "coarsen mode 'host' (coarsen_once) is not ported yet; use 'device'")
-    if mode != "device":
+    if mode not in ("device", "host"):
         raise ValueError(f"unknown coarsen mode {mode!r}")
     cur = g
     stats = _fetch_stats(cur)
-    if schedule is None:
-        schedule = shape_schedule(
-            g.n_max, g.m_max, ratio=bucket_ratio, safety=bucket_safety,
-            stall_ratio=stall_ratio, align=bucket_align,
-        )
-    if schedule[0][0] < stats["n"] or schedule[0][1] < stats["m"]:
-        raise ValueError(
-            f"schedule rung 0 {schedule[0]} cannot hold the input graph "
-            f"(n={stats['n']}, m={stats['m']}) — with_capacity would "
-            "silently truncate real vertices/edges"
-        )
-    if (cur.n_max, cur.m_max) != schedule[0]:
-        cur = cur.with_capacity(*schedule[0])
-        stats = {**stats, "n_max": schedule[0][0], "m_max": schedule[0][1]}
+    if mode == "device":
+        if schedule is None:
+            schedule = shape_schedule(
+                g.n_max, g.m_max, ratio=bucket_ratio, safety=bucket_safety,
+                stall_ratio=stall_ratio, align=bucket_align,
+            )
+        if schedule[0][0] < stats["n"] or schedule[0][1] < stats["m"]:
+            raise ValueError(
+                f"schedule rung 0 {schedule[0]} cannot hold the input graph "
+                f"(n={stats['n']}, m={stats['m']}) — with_capacity would "
+                "silently truncate real vertices/edges"
+            )
+        if (cur.n_max, cur.m_max) != schedule[0]:
+            cur = cur.with_capacity(*schedule[0])
+            stats = {**stats, "n_max": schedule[0][0],
+                     "m_max": schedule[0][1]}
+
+    def step(fine: Graph, lvl: int):
+        """One level and its stats; the per-level host reads live here."""
+        if mode == "host":
+            gc, cmap = coarsen_once(fine, twohop_threshold=twohop_threshold,
+                                    mm_max_degree=mm_max_degree,
+                                    seed=seed + lvl)
+            return gc, cmap, _fetch_stats(gc)
+        gc, cmap = coarsen_level(fine, seed=seed + lvl,
+                                 twohop_threshold=twohop_threshold,
+                                 mm_max_degree=mm_max_degree)
+        st = _fetch_stats(gc)
+        cap = select_capacity(schedule, st["n"], st["m"])
+        if cap != (gc.n_max, gc.m_max):
+            gc = gc.with_capacity(*cap)
+            st = {**st, "n_max": cap[0], "m_max": cap[1]}
+        return gc, cmap, st
 
     levels: list[CoarsenLevel] = []
     for lvl in range(max_levels):
         if stats["n"] <= coarse_target:
             break
-        gc, cmap = coarsen_level(cur, seed=seed + lvl,
-                                 twohop_threshold=twohop_threshold,
-                                 mm_max_degree=mm_max_degree)
-        stats_c = _fetch_stats(gc)
-        cap = select_capacity(schedule, stats_c["n"], stats_c["m"])
-        if cap != (gc.n_max, gc.m_max):
-            gc = gc.with_capacity(*cap)
-            stats_c = {**stats_c, "n_max": cap[0], "m_max": cap[1]}
+        gc, cmap, stats_c = step(cur, lvl)
         if stats_c["n"] > stall_ratio * stats["n"]:  # stalled
             break
         levels.append(CoarsenLevel(graph=cur, cmap=cmap, stats=stats))

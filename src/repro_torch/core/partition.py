@@ -35,14 +35,14 @@ class PartitionConfig:
     coarse_target: int = 4096         # paper coarsens to 4-8k vertices
     max_levels: int = 40              # coarsening depth cap
     stall_ratio: float = 0.95         # terminate when a level shrinks less
-    coarsen_mode: str = "device"      # device; host is not ported yet
+    coarsen_mode: str = "device"      # device|host (legacy numpy repack)
     bucket_ratio: float = 1.6         # shape-schedule geometric shrink
     bucket_safety: float = 1.25       # headroom multiplier on the shrink
     bucket_align: int = 64            # capacity rung alignment
     patience: int = 12                # iterations without a new best
     max_iter: int = 300
     b_max: int = 2                    # weak rebalances before strong
-    backend: str = "dense"            # connectivity backend: dense|ell
+    backend: str = "dense"            # connectivity backend: dense|sorted|ell
     rebuild_every: int = 0            # full ConnState rebuild period (0=never,
                                       # 1=paper's always-rebuild fallback)
     init_method: str = "voronoi"      # random|voronoi
@@ -137,6 +137,8 @@ def partition(g: Graph, cfg: PartitionConfig, device=None) -> PartitionResult:
     seeds = _resolve_trial_seeds(cfg)
     trials = cfg.trials
     cn._check_backend(cfg.backend)
+    if cfg.backend == "sorted":  # the finest level is the largest
+        cn.check_sorted(g, k, trials)
 
     t0 = time.perf_counter()
     levels = co.multilevel_coarsen(

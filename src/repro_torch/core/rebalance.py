@@ -7,6 +7,8 @@ eviction prefixes come from a segmented cumulative sum.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import connectivity as cn
@@ -18,16 +20,48 @@ NSLOT = 36  # slot(x) in [0, 2+floor(log2(2^31))] = [0, 33]
 _INF = 2147483647
 
 
+# floor(log2(x)) as the reference's XLA-CPU log2 gives it, where that differs
+# from the float32 exponent of x: (first, last, value) over float32 bit
+# patterns, for every x = float32(loss) of an int32 loss (63 such x, all
+# near powers of two; tests/test_torch_core.py regenerates them).
+_XLA_LOG2_FLOOR = (
+    (1174405120, 1174405120, 12),  # 8192
+    (1191182336, 1191182336, 14),  # 32768
+    (1241513976, 1241513976, 21),  # 2097151
+    (1249902588, 1249902588, 22),  # 4194303
+    (1258291186, 1258291198, 23),  # 8388601..8388607
+    (1266679793, 1266679807, 24),  # 16777201..16777215
+    (1275068409, 1275068415, 25),  # 33554418..33554430
+    (1283457024, 1283457024, 25),  # 67108864
+    (1291845632, 1291845636, 26),  # 134217728..134217792
+    (1300234225, 1300234239, 28),  # 268435216..268435440
+    (1308622841, 1308622847, 29),  # 536870688..536870880
+    (1317011456, 1317011456, 29),  # 1073741824
+    (1325400064, 1325400064, 30),  # 2147483648
+)
+
+
+@functools.cache
+def _log2_table(device: torch.device):
+    return torch.tensor(_XLA_LOG2_FLOOR, dtype=torch.int32,
+                        device=device).T.contiguous()
+
+
 def slot(loss: torch.Tensor) -> torch.Tensor:
     """Eq 4.5: log2 bucketing of the loss value.
 
-    ``floor(log2(float32(loss)))`` is read as the float32 exponent, which
-    gives the same answer on the CPU and on CUDA.  The reference's XLA-CPU
-    ``log2`` rounds up just below some powers of two, so the two differ at
-    a few known loss values (pinned by tests/test_torch_core.py).
+    ``floor(log2(float32(loss)))`` is read as the float32 exponent and then
+    corrected by :data:`_XLA_LOG2_FLOOR` wherever the reference's XLA-CPU
+    ``log2`` rounds across an integer.  Integer arithmetic only, so the
+    answer is the reference's on the CPU and on CUDA alike.
     """
     f = torch.clamp(loss.float(), min=1.0)
-    lg = ((f.view(torch.int32) >> 23) & 0xFF) - 127
+    bits = f.view(torch.int32)
+    lg = ((bits >> 23) & 0xFF) - 127
+    first, last, value = _log2_table(bits.device)
+    i = (torch.searchsorted(first, bits, right=True) - 1).clamp(min=0)
+    hit = (bits >= first[i]) & (bits <= last[i])
+    lg = torch.where(hit, value[i], lg)
     return torch.where(loss > 0, 2 + lg, torch.where(loss == 0, 1, 0)).int()
 
 

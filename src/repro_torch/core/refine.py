@@ -20,6 +20,9 @@ from repro_torch.core import metrics
 from repro_torch.core import rebalance as rb
 from repro_torch.core.graph import Graph
 
+VARIANTS = ("baseline", "locks", "weak_ab", "full_ab", "full")
+
+
 def variant_flags(variant: str):
     """(use_ratio_filter, use_afterburner, use_locks) — Table 3 ablations."""
     return {

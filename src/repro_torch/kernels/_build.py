@@ -17,6 +17,7 @@ import subprocess
 from pathlib import Path
 
 _KERNELS = Path(__file__).resolve().parent
+KERNELS = ("jet_gain", "segment_reduce")  # every kernel source of the port
 BUILD_DIR = _KERNELS / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -42,7 +43,7 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build(names) -> None:
+def build(names=KERNELS) -> None:
     """Compile every named kernel that has no library yet, in parallel."""
     todo = [n for n in names if not _library(n).exists()]
     if not todo:

@@ -1,7 +1,7 @@
 """Partitioner CLI: partition a generated or user-supplied graph.
 
     PYTHONPATH=src python -m repro_torch.launch.partition_cli --graph grid \
-        --size 96 --k 16 --backend ell --out parts.npy
+        --size 96 --k 16 --backend sorted --out parts.npy
 
 Runs on the GPU (``--device cuda``, the default) or the CPU (``--device
 cpu``) and prints the same JSON report as ``repro.launch.partition_cli``.
@@ -70,7 +70,8 @@ def main(argv=None):
     ap.add_argument("--k", type=int, default=8)
     ap.add_argument("--imbalance", type=float, default=0.03)
     ap.add_argument("--phi", type=float, default=0.999)
-    ap.add_argument("--backend", default="dense", choices=["dense", "ell"])
+    ap.add_argument("--backend", default="dense",
+                    choices=["dense", "sorted", "ell"])
     ap.add_argument("--rebuild-every", type=int, default=0,
                     help="full ConnState rebuild period inside refinement "
                          "(0=never/incremental, 1=rebuild each iteration)")
@@ -78,6 +79,10 @@ def main(argv=None):
                     help="stop coarsening at this many vertices")
     ap.add_argument("--max-levels", type=int, default=40,
                     help="coarsening depth cap")
+    ap.add_argument("--coarsen-mode", default="device",
+                    choices=["device", "host"],
+                    help="device: on-device levels on the shape schedule; "
+                         "host: legacy per-level numpy repack")
     ap.add_argument("--bucket-ratio", type=float, default=1.6,
                     help="shape-schedule geometric shrink per rung")
     ap.add_argument("--bucket-safety", type=float, default=1.25,
@@ -110,6 +115,7 @@ def main(argv=None):
                           rebuild_every=args.rebuild_every, seed=args.seed,
                           coarse_target=args.coarse_target,
                           max_levels=args.max_levels,
+                          coarsen_mode=args.coarsen_mode,
                           bucket_ratio=args.bucket_ratio,
                           bucket_safety=args.bucket_safety,
                           bucket_align=args.bucket_align,

@@ -12,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+import torch_parity as tp  # noqa: E402
 
 from repro.core import coarsen as jco  # noqa: E402
 from repro.core import connectivity as jcn  # noqa: E402
@@ -149,23 +150,34 @@ def test_size_limit_float32_order(lam):
 
 # -- slot (Eq 4.5) -------------------------------------------------------------
 
-# The reference computes floor(log2(float32(loss))) with XLA-CPU's log2,
-# which returns 12.999999 for 8192 and 14.999999 for 32768, and rounds
-# log2(2097151) and log2(4194303) up to the next integer.  The port reads
-# the float32 exponent, which is exact and the same on the CPU and on CUDA.
-# These four losses are rounding artefacts of XLA-CPU's log2, not port
-# faults; everywhere else in [-2^16, 2^22] the two agree.
-SLOT_XLA_LOG2_ARTEFACTS = {8192, 32768, 2097151, 4194303}
+def _xla_log2_exceptions():
+    """{float32 bits: value} of the float32 values of int32 losses near
+    powers of two at which the reference's floor(log2(x)) differs from the
+    float32 exponent of x, from the live reference."""
+    x = tp.pow2_window_floats()
+    want = np.asarray(jnp.floor(jnp.log2(jnp.asarray(x))).astype(jnp.int32))
+    bits = x.view(np.int32)
+    differ = want != ((bits >> 23) & 0xFF) - 127
+    return dict(zip(bits[differ].tolist(), want[differ].tolist()))
 
 
-def test_slot_matches_reference_except_xla_log2_artefacts():
-    loss = np.arange(-2**16, 2**22 + 1, dtype=np.int32)
+def test_slot_matches_reference():
+    """slot() equals the reference on every loss in [-2^16, 2^22] and in the
+    +-4096-ulp float32 windows around 2^j, and its correction table is
+    exactly the live reference's set of log2 exceptions there."""
+    table = _xla_log2_exceptions()
+    assert len(table) == 63
+    covered = {}
+    for first, last, value in rb._XLA_LOG2_FLOOR:
+        x = np.arange(first, last + 1, dtype=np.int32).view(np.float32)
+        for bits in x[x == np.floor(x)].view(np.int32):
+            covered[int(bits)] = value
+    assert covered == table
+    loss = tp.slot_losses()
+    assert loss.min() == -2**16 and loss.max() == 2**31 - 1
     got = rb.slot(torch.from_numpy(loss)).numpy()
     want = np.asarray(jrb.slot(jnp.asarray(loss)))
-    differ = set(loss[got != want].tolist())
-    assert differ == SLOT_XLA_LOG2_ARTEFACTS
-    for x in SLOT_XLA_LOG2_ARTEFACTS:  # the port's answer is the exact one
-        assert got[x + 2**16] == 2 + int(np.floor(np.log2(np.float64(x))))
+    assert (got != want).sum() == 0, loss[got != want][:10]
 
 
 # -- connectivity state --------------------------------------------------------
@@ -176,6 +188,8 @@ def _state_eq(ts, js, t, backend):
     assert int(ts.moves_applied[t]) == int(js.moves_applied)
     if backend == "dense":
         _eq(ts.mat[t].numpy(), js.mat)
+    elif backend == "sorted":
+        _eq(ts.edge_dst_part[t].numpy(), js.edge_dst_part)
     else:
         _eq(ts.ell_nbr.numpy(), js.ell_nbr)
         _eq(ts.ell_wgt.numpy(), js.ell_wgt)
@@ -190,7 +204,7 @@ def _moves(jg, k, t, seed):
     return move, dest
 
 
-@pytest.mark.parametrize("backend", ["dense", "ell"])
+@pytest.mark.parametrize("backend", cn.BACKENDS)
 @pytest.mark.parametrize("k", [2, 8, 33])
 def test_conn_state_build_apply_rebuild(backend, k):
     jg = _padded(jgen.rmat(8))
@@ -230,21 +244,40 @@ def test_conn_state_build_apply_rebuild(backend, k):
     # incremental == rebuilt, structure and all
     assert torch.equal(ts2.sizes, tr.sizes) and torch.equal(ts2.cut, tr.cut)
     assert torch.equal(ts2.mat, tr.mat)
+    assert torch.equal(ts2.edge_dst_part, tr.edge_dst_part)
     assert torch.equal(ts2.ell_parts, tr.ell_parts)
 
 
-def test_sorted_backend_and_host_mode_not_ported():
-    tg = gen.grid2d(4, 4)
-    with pytest.raises(NotImplementedError, match="sorted"):
-        cn.build_state(tg, torch.zeros(1, 16, dtype=torch.int32), 2, "sorted")
-    with pytest.raises(NotImplementedError, match="host"):
-        co.multilevel_coarsen(tg, coarse_target=4, mode="host")
+def _shape_only_graph(n_max, m_max):
+    """A graph of the given capacities whose arrays are broadcast views
+    (no memory): enough for the host-side shape checks."""
+    z = torch.zeros(1, dtype=torch.int32)
+    return gr.Graph(z.expand(n_max + 1), z.expand(m_max), z.expand(m_max),
+                    z.expand(n_max), z.expand(m_max), torch.tensor(0),
+                    torch.tensor(0))
+
+
+def test_sorted_backend_refuses_wrapping_keys():
+    """Past n_max*(k+1) = 2^32-1 the reference's uint32 keys wrap and its
+    sorted connectivity is silently wrong; the port refuses the shape."""
+    cn.check_sorted(_shape_only_graph(65535, 64), 65536, 1)  # 2^32-1: fits
+    big = _shape_only_graph(65536, 64)
+    parts = torch.zeros(1, 1, dtype=torch.int32).expand(1, 65536)
+    with pytest.raises(ValueError, match="2\\^32-1"):
+        cn.sorted_queries(big, parts, 65536)
+    with pytest.raises(ValueError, match="2\\^32-1"):
+        pa.partition(_shape_only_graph(2**22 + 1, 64),
+                     pa.PartitionConfig(k=1024, backend="sorted"),
+                     device="cpu")
+    with pytest.raises(ValueError, match="int32 segment ids"):
+        cn.check_sorted(_shape_only_graph(64, 2**30), 8, 2)
+    cn.check_sorted(_shape_only_graph(64, 2**30 - 1), 8, 2)
 
 
 # -- refinement moves ------------------------------------------------------------
 
-@pytest.mark.parametrize("backend", ["dense", "ell"])
-@pytest.mark.parametrize("variant", ["full", "baseline", "weak_ab", "locks"])
+@pytest.mark.parametrize("backend", cn.BACKENDS)
+@pytest.mark.parametrize("variant", rf.VARIANTS)
 def test_jetlp_moves_match(backend, variant):
     jg = _padded(jgen.grid3d(6, 6, 5))
     tg = _port(jg)
@@ -260,7 +293,7 @@ def test_jetlp_moves_match(backend, variant):
         _eq(dest[t].numpy(), jd)
 
 
-@pytest.mark.parametrize("backend", ["dense", "ell"])
+@pytest.mark.parametrize("backend", cn.BACKENDS)
 @pytest.mark.parametrize("k", [2, 8, 33])
 @pytest.mark.parametrize("kind", ["jetrw_moves", "jetrs_moves"])
 def test_rebalance_moves_match(backend, k, kind):
@@ -277,7 +310,7 @@ def test_rebalance_moves_match(backend, k, kind):
         _eq(dest[t].numpy(), jdest)
 
 
-@pytest.mark.parametrize("backend", ["dense", "ell"])
+@pytest.mark.parametrize("backend", cn.BACKENDS)
 @pytest.mark.parametrize("rebuild_every", [0, 3])
 def test_jet_refine_matches(backend, rebuild_every):
     jg = _padded(jgen.grid2d(12, 10))

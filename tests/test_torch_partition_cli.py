@@ -21,7 +21,7 @@ from repro_torch.data import graphs as gen  # noqa: E402
 from repro_torch.launch import partition_cli as cli  # noqa: E402
 
 
-@pytest.mark.parametrize("backend", ["dense", "ell"])
+@pytest.mark.parametrize("backend", ["dense", "sorted", "ell"])
 def test_refine_only_matches_reference(backend):
     rng = np.random.default_rng(4)
     parts0 = rng.integers(0, 4, 16 * 16).astype(np.int32)
@@ -48,6 +48,8 @@ def _run(main, argv):
 @pytest.mark.parametrize("argv", [
     ["--graph", "grid", "--size", "16", "--k", "4", "--trials", "2",
      "--coarse-target", "64", "--backend", "ell"],
+    ["--graph", "rmat", "--size", "64", "--k", "8", "--coarse-target", "64",
+     "--backend", "sorted", "--coarsen-mode", "host"],
     # k=3 cannot balance 256 unit vertices at lam=0: both exit 1
     ["--graph", "grid", "--size", "16", "--k", "3", "--imbalance", "0.0",
      "--coarse-target", "64"],

@@ -1,7 +1,8 @@
 """Shared cases for the end-to-end parity tests of the PyTorch port.
 
 Each case is one small graph × connectivity backend × k, partitioned with
-T=2 trials and ``coarse_target=64`` by both packages.  :func:`summary`
+T=2 trials and ``coarse_target=64`` by both packages; a few more cases
+coarsen in host mode (a ``_host`` suffix on the name).  :func:`summary`
 reduces a result to the integers the tests compare (cut, per-trial cuts
 and balance, best trial, per-level stats, sha256 of the parts arrays); the
 same summaries of the JAX reference are committed as
@@ -34,19 +35,25 @@ GRAPHS = {
     "cube8": ("grid3d", (8, 8, 8)),
     "rmat9": ("rmat", (9,)),
 }
-BACKENDS = ("dense", "ell")
+BACKENDS = ("dense", "sorted", "ell")
 KS = (2, 8)
 TRIALS = 2
 COARSE_TARGET = 64
+HOST_CASES = ("grid16_dense_k8_host", "rmat9_sorted_k8_host")
 
 
-def case_names(graph: str) -> list[str]:
-    return [f"{graph}_{b}_k{k}" for b in BACKENDS for k in KS]
+def case_names(graph: str, backends=BACKENDS) -> list[str]:
+    return [f"{graph}_{b}_k{k}" for b in backends for k in KS]
+
+
+def all_cases() -> list[str]:
+    return [n for g in GRAPHS for n in case_names(g)] + list(HOST_CASES)
 
 
 def parse(name: str):
-    graph, backend, k = name.split("_")
-    return graph, backend, int(k[1:])
+    """(graph, backend, k, coarsen_mode) of a case name."""
+    graph, backend, k, *host = name.split("_")
+    return graph, backend, int(k[1:]), "host" if host else "device"
 
 
 def make_graph(gen_module, graph: str):
@@ -55,9 +62,9 @@ def make_graph(gen_module, graph: str):
 
 
 def config_kwargs(name: str) -> dict:
-    _, backend, k = parse(name)
+    _, backend, k, mode = parse(name)
     return dict(k=k, trials=TRIALS, coarse_target=COARSE_TARGET,
-                backend=backend)
+                backend=backend, coarsen_mode=mode)
 
 
 def sha(a) -> str:
@@ -102,6 +109,15 @@ def torch_result(name: str, device: str = "cpu"):
                      PartitionConfig(**config_kwargs(name)), device=device)
 
 
+def assert_matches_reference(name: str) -> None:
+    """The port's CPU result of a case equals the live JAX result exactly."""
+    got, want = torch_result(name), jax_result(name)
+    np.testing.assert_array_equal(_np(got.parts), _np(want.parts))
+    np.testing.assert_array_equal(_np(got.trial_parts), _np(want.trial_parts))
+    assert summary(got) == summary(want)
+    assert got.imbalance == want.imbalance
+
+
 def panel(n: int, d: int, k: int, t: int | None, seed: int):
     """A random jet_gain ELL panel as numpy (nbr_parts, wgt, parts).
 
@@ -121,13 +137,74 @@ def panel(n: int, d: int, k: int, t: int | None, seed: int):
     return nbr_parts, wgt, parts
 
 
+def pow2_window_floats() -> np.ndarray:
+    """Every float32 x = float32(loss) of an int32 loss within 4096 ulps
+    of a power of two 2^j, j = 0..31: the only places where a float32
+    floor(log2) can go wrong."""
+    xs = []
+    for j in range(32):
+        c = int(np.float32(2.0**j).view(np.int32))
+        x = np.arange(c - 4096, c + 4097, dtype=np.int32).view(np.float32)
+        xs.append(x[(x >= 1) & (x <= 2.0**31) & (x == np.floor(x))])
+    return np.unique(np.concatenate(xs))
+
+
+def slot_losses() -> np.ndarray:
+    """The int32 losses on which the port's slot() is held to the
+    reference's: all of [-2^16, 2^22], and one loss for each of
+    :func:`pow2_window_floats` (2^31 itself is float32(INT_MAX))."""
+    x = np.minimum(pow2_window_floats().astype(np.float64), 2**31 - 1)
+    return np.unique(np.concatenate([
+        np.arange(-2**16, 2**22 + 1), x.astype(np.int64)])).astype(np.int32)
+
+
+SEGMENT_KINDS = ("one", "each", "span", "empty", "drop")
+
+
+def segment_case(m: int, f: int, kind: str, dtype, seed: int, device):
+    """A segment_reduce panel as torch tensors (data (m, f), seg_ids (m,),
+    num_segments) made on ``device`` from ``seed``.
+
+    kind: ``one`` all rows in one segment; ``each`` every row its own;
+    ``span`` four segments, so runs span many tiles; ``empty`` 4m+7
+    segments, most of them empty; ``drop`` a third of the rows carry ids
+    >= num_segments.  int32 values cover the whole range, so sums wrap.
+    """
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    kw = dict(device=device, generator=gen)
+    if kind == "one":
+        s, seg = 1, torch.zeros(m, dtype=torch.int64, device=device)
+    elif kind == "each":
+        s, seg = m, torch.arange(m, device=device)
+    elif kind == "span":
+        s = 4
+        seg = torch.multinomial(torch.tensor([7.0, 1, 1, 1], device=device),
+                                m, replacement=True, generator=gen)
+    elif kind == "empty":
+        s = 4 * m + 7
+        seg = torch.randint(0, s, (m,), **kw)
+    elif kind == "drop":
+        s = max(2 * m // 3, 1)
+        seg = torch.randint(0, s + m // 3 + 1, (m,), **kw)
+    else:
+        raise ValueError(f"unknown segment case kind {kind!r}")
+    seg = torch.sort(seg).values.int()
+    if dtype == torch.int32:
+        data = torch.randint(-2**31, 2**31, (m, f), dtype=torch.int64, **kw)
+        data = data.int()
+    else:
+        data = torch.randn(m, f, **kw)
+    return data, seg, s
+
+
 def load_golden() -> dict:
     return json.loads(GOLDEN.read_text())["cases"]
 
 
 def write_golden() -> None:
-    cases = {name: summary(jax_result(name))
-             for graph in GRAPHS for name in case_names(graph)}
+    cases = {name: summary(jax_result(name)) for name in all_cases()}
     GOLDEN.write_text(json.dumps({
         "about": "JAX reference summaries of the port's small partition "
                  "parity cases; regenerate with "
