@@ -23,6 +23,7 @@ from repro_torch.core import coarsen as co
 from repro_torch.core import connectivity as cn
 from repro_torch.core import initial, metrics, refine
 from repro_torch.core.graph import Graph
+from repro_torch.device import resolve_device, synchronize
 
 
 @dataclass
@@ -70,16 +71,6 @@ class PartitionResult:
     trial_parts: Any = None           # (T, n_max) finest-level parts batch
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card; asking for CUDA without one raises."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the partitioner runs on the GPU by default; pass "
-            "device='cpu' to run it on the CPU")
-    return device
-
-
 def _resolve_trial_seeds(cfg: PartitionConfig) -> tuple:
     if cfg.trials < 1:
         raise ValueError(f"trials must be >= 1, got {cfg.trials}")
@@ -118,11 +109,6 @@ def _best_trial(balanced, cut, maxsize) -> torch.Tensor:
     return torch.where(balanced.any(), idx_bal, idx_imb)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def partition(g: Graph, cfg: PartitionConfig, device=None) -> PartitionResult:
     """Full multilevel partition of ``g`` into ``cfg.k`` parts.
 
@@ -147,13 +133,13 @@ def partition(g: Graph, cfg: PartitionConfig, device=None) -> PartitionResult:
         bucket_ratio=cfg.bucket_ratio, bucket_safety=cfg.bucket_safety,
         bucket_align=cfg.bucket_align,
     )
-    _sync(device)
+    synchronize(device)
     t_coarsen = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     parts_b = initial.initial_partition_batch(levels[-1].graph, k, seeds,
                                               method=cfg.init_method)
-    _sync(device)
+    synchronize(device)
     t_init = time.perf_counter() - t0
 
     t0 = time.perf_counter()

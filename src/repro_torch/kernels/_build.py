@@ -17,7 +17,8 @@ import subprocess
 from pathlib import Path
 
 _KERNELS = Path(__file__).resolve().parent
-KERNELS = ("jet_gain", "segment_reduce")  # every kernel source of the port
+KERNELS = ("jet_gain", "segment_reduce", "fm_interaction",
+           "flash_attention")  # every kernel source of the port
 BUILD_DIR = _KERNELS / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,15 +1,20 @@
-"""The port on a CUDA card: the jet_gain and segment_reduce kernels against
-their plain versions, and partition() against the CPU run, the committed
-golden results and, for the sorted backend, the dense backend.
+"""The port on a CUDA card: the jet_gain, segment_reduce, fm_interaction
+and flash_attention kernels against their plain versions, partition()
+against the CPU run, the committed golden results and, for the sorted
+backend, the dense backend, and the two serving models against their CPU
+runs.
 
 These tests import no JAX, so they run on a machine that has only torch:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Without a card they skip.  Every comparison is exact, except segment_reduce
-on float32: its sums run in another order than the plain version's, so
-each output may differ by 1e-5 + 1e-5 * (the sum of |x| over its segment),
-and two launches must agree bit for bit.
+Without a card they skip.  Every comparison is exact, except where a float
+sum runs in another order than the plain version's; two launches must then
+agree bit for bit, and the tolerance is: segment_reduce on float32, 1e-5 +
+1e-5 * (the sum of |x| over the segment); fm_interaction, 1e-5 + 1e-5 *
+(the row's sum of e^2); flash_attention, 2e-5 + 2e-5 * |plain| in float32
+and 1e-5 + 1e-2 * |plain| in bfloat16 (``torch_parity.py``); the models'
+logits and scores against the CPU, 2e-4.
 """
 import numpy as np
 import pytest
@@ -22,6 +27,10 @@ from repro_torch.kernels.jet_gain import ops  # noqa: E402
 from repro_torch.kernels.jet_gain.ref import jet_gain_ref  # noqa: E402
 from repro_torch.kernels.segment_reduce import ops as sr  # noqa: E402
 from repro_torch.kernels.segment_reduce.ref import segment_sum_sorted_ref  # noqa: E402,E501
+from repro_torch.kernels.fm_interaction import ops as fm_ops  # noqa: E402
+from repro_torch.kernels.fm_interaction.ref import fm_interaction_ref  # noqa: E402,E501
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402,E501
 
 pytestmark = pytest.mark.gpu
 
@@ -100,3 +109,85 @@ def test_sorted_equals_dense_on_card(cuda):
         launched = kernels.launch_counts["segment_reduce"]
         assert (launched > 0) == (backend == "sorted"), launched
     assert tp.summary(res["sorted"]) == tp.summary(res["dense"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,f,d", [(1, 1, 1), (257, 39, 10), (4099, 8, 128),
+                                   (512, 39, 300)])
+def test_fm_interaction_matches_plain(cuda, b, f, d, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(b + f + d)
+    emb = torch.randn(b, f, d, generator=gen, device=cuda).to(dtype)
+    want = fm_interaction_ref(emb)
+    before = kernels.launch_counts["fm_interaction"]
+    got = fm_ops.fm_interaction(emb)
+    again = fm_ops.fm_interaction(emb)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["fm_interaction"] == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    assert tp.fm_error_ratio(got, want, emb) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 64, 256])
+@pytest.mark.parametrize("shape", tp.FLASH_SHAPES)
+def test_flash_attention_matches_plain(cuda, shape, d, dtype):
+    h, hkv, sq, skv, causal, window, off = shape
+    q, k, v = tp.qkv(2, h, hkv, sq, skv, d, dtype, seed=sq + skv + d,
+                     device=cuda)
+    want = flash_attention_ref(q, k, v, causal, window, off)
+    before = kernels.launch_counts["flash_attention"]
+    got = fa_ops.flash_attention(q, k, v, causal, window, off)
+    again = fa_ops.flash_attention(q, k, v, causal, window, off)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["flash_attention"] == before + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    assert tp.flash_error_ratio(got, want) <= 1
+    # rows that see no key are exactly 0, as in the Pallas kernel
+    dead = want.float().abs().amax(dim=-1) == 0
+    assert bool((got[dead] == 0).all())
+
+
+def test_fm_serving_on_card_matches_cpu(cuda):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+
+    arch = get_arch("fm")
+    for name in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        cpu = steps.build_cell(arch, name, device="cpu", smoke=True)
+        card = steps.build_cell(
+            arch, name, device=cuda, smoke=True,
+            params={k: v.to(cuda) for k, v in cpu.args[0].items()})
+        kernels.reset_launch_counts()
+        got = card.step_fn(*card.args)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["fm_interaction"] == (
+            0 if name == "retrieval_cand" else 1)
+        np.testing.assert_allclose(got.cpu().numpy(),
+                                   cpu.step_fn(*cpu.args).numpy(),
+                                   rtol=2e-4, atol=2e-4)
+
+
+def test_lm_serving_on_card_matches_cpu(cuda):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+
+    cfg = get_arch("gemma3-1b").smoke
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = {k: v.to(cuda) for k, v in params.items() if k != "layers"}
+    on_card["layers"] = {k: v.to(cuda) for k, v in params["layers"].items()}
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))
+    fed = torch.from_numpy(rng.integers(0, cfg.vocab, (6, 2)))
+    kernels.reset_launch_counts()
+    for dev, p in (("cpu", params), (cuda, on_card)):
+        logits, cache = tf.prefill(cfg, p, prompts.to(dev), max_len=46)
+        out = [logits]
+        for t in fed:
+            logits, cache = tf.decode_step(cfg, p, cache, t.to(dev))
+            out.append(logits)
+        if dev == "cpu":
+            want = out
+    assert kernels.launch_counts["flash_attention"] == cfg.n_layers
+    for got, w in zip(out, want):
+        np.testing.assert_allclose(got.cpu().numpy(), w.numpy(), rtol=2e-4,
+                                   atol=2e-4)

@@ -199,6 +199,52 @@ def segment_case(m: int, f: int, kind: str, dtype, seed: int, device):
     return data, seg, s
 
 
+def fm_error_ratio(got, want, emb) -> float:
+    """The largest |kernel - plain| of an fm_interaction result over its
+    tolerance, 1e-5 + 1e-5 * (the row's sum of e^2): the terms s^2 and sq
+    cancel, so an error of a few float32 roundings of their size is
+    expected.  At most 1 passes."""
+    e = emb.float()
+    bound = 1e-5 + 1e-5 * (e * e).sum(dim=(1, 2))
+    return float(((got - want).abs() / bound).max()) if got.numel() else 0.0
+
+
+def flash_error_ratio(got, want) -> float:
+    """The largest |kernel - plain| of a flash_attention output over its
+    tolerance: 2e-5 + 2e-5 * |plain| in float32 (the softmax and the
+    products run in another order), 1e-5 + 1e-2 * |plain| in bfloat16 and
+    float16 (one step of the output's rounding).  At most 1 passes."""
+    import torch
+
+    rel, floor = (2e-5, 2e-5) if got.dtype == torch.float32 else (1e-2, 1e-5)
+    w = want.float()
+    return float(((got.float() - w).abs() / (floor + rel * w.abs())).max()) \
+        if got.numel() else 0.0
+
+
+# (H, Hkv, Sq, Skv, causal, window, q_offset): ragged tiles, Sq != Skv with
+# an offset, non-causal, a 512 window, rows that see no key (a negative
+# offset, or a window past the last key), one query against a long cache
+FLASH_SHAPES = (
+    (4, 4, 200, 200, True, 0, 0),
+    (4, 1, 130, 300, True, 16, 170),
+    (4, 4, 77, 77, False, 0, 0),
+    (4, 1, 96, 600, False, 512, 520),
+    (4, 1, 100, 50, True, 0, -30),
+    (4, 4, 64, 70, False, 16, 80),
+    (4, 1, 1, 1000, True, 512, 999),
+)
+
+
+def qkv(b, h, hkv, sq, skv, d, dtype, seed: int, device):
+    """Random q (b, h, sq, d) and k, v (b, hkv, skv, d) made on ``device``."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=device).to(dtype)
+            for shape in ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))]
+
+
 def load_golden() -> dict:
     return json.loads(GOLDEN.read_text())["cases"]
 
