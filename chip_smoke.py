@@ -7,10 +7,16 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
 ``src/``; it imports no JAX.  Phases, each of which must pass:
 
   (a) card and build: the card's name and power limit; build every kernel
-      (one nvcc per source, all at once) and print ptxas's report of each.
+      (one nvcc per source, all at once) and print ptxas's report of each,
+      with the registers and spill bytes of every flash_attention
+      instantiation; where ``cuobjdump`` exists, the count of tensor-core
+      (HMMA) instructions in each flash_attention kernel, which must be
+      nonzero for the bfloat16 and float16 ones.
   (b) jet_gain against plain: its plain PyTorch version on random panels
-      (D in {4, 6, 37, 300}, k in {2, 64, 1000}, T in {1, 4}, with ties,
-      ghost rows and rows with no other part): exact.
+      (D in {1, 4, 6, 8, 31, 32, 33, 37, 300}: the lane-group path up to 32
+      and the histogram path above; k in {2, 64, 1000}, T in {1, 4}, with
+      ties, ghost rows, rows with no other part, part ids outside [0, k] and
+      rows whose parts all tie at connectivity 0): exact.
   (b2) segment_reduce against plain: M in {1, 255, 256, 257, 10^5,
       2.4*10^7} at F = 1 and up to 10^5 at F in {3, 128}; all rows in one
       segment, every row its own, runs spanning many tiles, mostly empty
@@ -29,8 +35,9 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       jet_gain launched once per refinement iteration; then jet_gain and its
       plain version timed with CUDA events at the finest level's shapes.
   (f) where the time goes: the same partition() once more under
-      torch.profiler — device busy time against phase (e)'s wall time, and
-      the kernels that take the most device time.
+      torch.profiler — device busy time against phase (e)'s wall time, the
+      kernels that take the most device time, and jet_gain's device time
+      over the whole partition().
   (g) full width, sorted: the configuration of (e) with backend="sorted":
       parts, trial parts, cut and level stats equal (e)'s bit for bit, and
       segment_reduce launched as often as the loop's queries need; the
@@ -49,11 +56,12 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       retrieval_cand (10^6 candidates) against float64; the kernel, its
       plain version and each serve step timed with CUDA events; examples/s
       and peak memory.
-  (k) flash_attention against plain: groups 1 and 4, D in {8, 64, 128,
+  (k) flash_attention against plain: groups 1 and 4, D in {8, 36, 64, 128,
       256}, causal and not, windows 0/16/512, query offsets, Sq != Skv,
-      ragged tiles, rows that see no key (exactly 0), float32 and bfloat16:
-      within 2e-5 + 2e-5 * |plain| (float32) or 1e-5 + 1e-2 * |plain|
-      (bfloat16) and bitwise equal across two launches.
+      ragged tiles, rows that see no key (exactly 0), float32 (the CUDA-core
+      kernel), bfloat16 and float16 (the tensor-core kernel): within 2e-5 +
+      2e-5 * |plain| (float32) or 1e-5 + 1e-2 * |plain| (bfloat16, float16)
+      and bitwise equal across two launches.
   (l) Gemma-3 1B serving at full width (bfloat16, seeded weights): prefill
       4 prompts of 4096 tokens, then 32 greedy decode steps, through
       ``repro_torch.launch.serve.generate``: 26 flash_attention launches per
@@ -64,8 +72,8 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       margin exceeds twice the logit difference; times, tokens/s and peak
       memory.  Then the kernel, its plain version and
       ``F.scaled_dot_product_attention`` timed at a global and a local
-      layer's shapes, and the smoke config's logits on the card against
-      the CPU within 2e-4.
+      layer's shapes (with the kernel/SDPA time ratio), and the smoke
+      config's logits on the card against the CPU within 2e-4.
   The script ends by checking that no jax or repro (JAX package) module was
   imported.  ``--phases`` runs a subset, for debugging; such a run prints no
   result line.
@@ -97,6 +105,70 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def _cuda_tool(name: str) -> str | None:
+    """A tool of the CUDA toolkit, on PATH or under /usr/local/cuda."""
+    import shutil
+
+    path = Path("/usr/local/cuda/bin") / name
+    return shutil.which(name) or (str(path) if path.exists() else None)
+
+
+def _demangle(names: list[str]) -> list[str]:
+    """C++ names through cu++filt where it exists."""
+    tool = _cuda_tool("cu++filt")
+    if not tool or not names:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True).stdout.splitlines()
+    return out if len(out) == len(names) else names
+
+
+def _short(name: str) -> str:
+    """A demangled kernel name without its parameter list and casts:
+    ``flash_kernel_tc<__nv_bfloat16, 256, 32>``."""
+    name = name.replace("(int)", "").replace("<unnamed>::", "")
+    return name.split("(")[0].removeprefix("void ")
+
+
+def _ptxas_functions(log: str) -> dict[str, dict]:
+    """Per entry function of a ``-Xptxas -v`` log: registers and spill
+    bytes."""
+    import re
+
+    funcs, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return funcs
+
+
+def _hmma_counts(lib: Path) -> dict[str, int] | None:
+    """Tensor-core (HMMA) instructions per kernel of a built library, from
+    ``cuobjdump -sass``; None where there is no cuobjdump."""
+    tool = _cuda_tool("cuobjdump")
+    if not tool:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            cur = ln.split("Function :", 1)[1].strip()
+            counts[cur] = 0
+        elif cur is not None and "HMMA" in ln:
+            counts[cur] += 1
+    return counts
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
@@ -107,6 +179,26 @@ def phase_build():
         ptxas = [ln for ln in log.splitlines() if "ptxas info" in ln]
         print(f"(a) {name} ptxas: " + " | ".join(ptxas))
     print(f"(a) kernels built in {build_s:.1f} s")
+    # flash_attention: registers and spills of each instantiation, and its
+    # tensor-core instructions
+    funcs = _ptxas_functions(_build.build_logs.get("flash_attention", ""))
+    for name, pretty in zip(funcs, _demangle(list(funcs))):
+        f = funcs[name]
+        print(f"(a) flash_attention {_short(pretty)}: "
+              f"{f.get('registers')} registers, {f.get('spill_stores')} "
+              f"bytes spill stores, {f.get('spill_loads')} bytes spill loads")
+    hmma = _hmma_counts(_build._library("flash_attention"))
+    if hmma is None:
+        print("(a) flash_attention HMMA count: no cuobjdump, not measured")
+        return
+    for name, pretty in zip(hmma, _demangle(list(hmma))):
+        tc = "flash_kernel_tc" in name
+        print(f"(a) flash_attention {_short(pretty)}: {hmma[name]} "
+              "HMMA instructions")
+        if tc and hmma[name] == 0:
+            raise AssertionError(f"(a) {pretty}: no tensor-core instruction")
+    if not any("flash_kernel_tc" in n for n in hmma):
+        raise AssertionError("(a) no flash_kernel_tc in the flash library")
 
 
 def phase_kernel_vs_plain(tp, dev):
@@ -117,11 +209,11 @@ def phase_kernel_vs_plain(tp, dev):
 
     n_cases = 0
     for t in (None, 4):
-        for d in (4, 6, 37, 300):
+        for d in (1, 4, 6, 8, 31, 32, 33, 37, 300):
             for k in (2, 64, 1000):
                 n = max(2000, 400000 // d)
                 ins = [torch.from_numpy(a).to(dev)
-                       for a in tp.panel(n, d, k, t, seed=d * k)]
+                       for a in tp.panel(n, d, k, t, seed=d * k, odd=True)]
                 want = jet_gain_ref(*ins, k)
                 got = ops.jet_gain_from_parts(*ins, k)
                 torch.cuda.synchronize()
@@ -135,7 +227,8 @@ def phase_kernel_vs_plain(tp, dev):
     for fn in (torch.argmax, torch.argmin):
         if not torch.equal(fn(x.to(dev), dim=1).cpu(), fn(x, dim=1)):
             raise AssertionError(f"(b) {fn.__name__} ties differ on the card")
-    print(f"(b) jet_gain == plain on {n_cases} panels; argmax/argmin ties agree")
+    print(f"(b) jet_gain == plain on {n_cases} panels (D <= 32 lane groups, "
+          "D > 32 histogram); argmax/argmin ties agree")
 
 
 def phase_segment_vs_plain(tp, dev):
@@ -318,7 +411,11 @@ def phase_full_width(dev):
           f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes)")
     if err != 0:
         raise AssertionError(f"(e) jet_gain differs from plain by {err}")
-    phase_profile("(f)", lambda: partition(g, cfg), res.times["total_s"])
+    groups = phase_profile("(f)", lambda: partition(g, cfg),
+                           res.times["total_s"])
+    print(f"(e) jet_gain device time per partition(): "
+          f"{groups.get('jet_gain', 'not measured')} ms (the profile of (f))")
+    _jet_gain_levels(g, cfg)
     entry = {
         "name": "jet_gain", "route": "cuda",
         "source": "src/repro_torch/kernels/jet_gain/jet_gain.cu",
@@ -328,19 +425,55 @@ def phase_full_width(dev):
         "bound_by": "bytes", "library_ms": None,
         "check": "exact against plain (phases b, c, d, e)",
         "shape": {"T": t, "N": nn, "D": d, "k": k},
+        "device_ms_per_partition": groups.get("jet_gain"),
     }
     return g, cfg, res, entry
 
 
+def _jet_gain_levels(g, cfg) -> None:
+    """One partition() more, keeping the first jet_gain panel of each level:
+    the kernel timed at each level's shapes, beside its launches there and
+    its bound."""
+    from collections import Counter
+
+    from repro_torch.core.partition import partition
+    from repro_torch.kernels.jet_gain import ops
+
+    first, launches = {}, Counter()
+    kernel = ops.jet_gain_from_parts
+
+    def keep(nbr_parts, wgt, parts, k):
+        key = tuple(nbr_parts.shape)
+        launches[key] += 1
+        if key not in first:
+            first[key] = (nbr_parts.clone(), wgt.clone(), parts.clone(), k)
+        return kernel(nbr_parts, wgt, parts, k)
+
+    with swapped(ops, "jet_gain_from_parts", keep):
+        partition(g, cfg)
+    total = 0.0
+    for key, ins in first.items():
+        ms = _time_ms(lambda ins=ins: kernel(*ins), 20)
+        total += launches[key] * ms
+        nbytes = (ins[0].numel() + ins[1].numel() + 4 * ins[2].numel()) * 4
+        print(f"(e) jet_gain at T, N, D = {key}: {launches[key]} launches, "
+              f"{ms:.4f} ms each, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} "
+              f"ms")
+    print(f"(e) jet_gain, the sum of launches x time over the levels: "
+          f"{total:.2f} ms per partition()")
+
+
 PARTITION_GROUPS = (("sort", ("sort",)),
-                    ("segment_reduce", ("tile_pass", "carry_pass")))
+                    ("segment_reduce", ("tile_pass", "carry_pass")),
+                    ("jet_gain", ("jet_gain",)))
 
 
 def phase_profile(tag: str, run, wall_s: float, what: str = "partition()",
-                  groups=PARTITION_GROUPS) -> None:
+                  groups=PARTITION_GROUPS) -> dict[str, float]:
     """``run()`` once more under torch.profiler: device busy time against
     ``wall_s``, the unprofiled run's wall time, the kernels that take the
-    most device time, and the share of each group of kernel names."""
+    most device time, and the share of each group of kernel names.  Returns
+    each group's device time in ms (empty if the profiler saw none)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -354,7 +487,7 @@ def phase_profile(tag: str, run, wall_s: float, what: str = "partition()",
     if not kernels:
         print(f"{tag} the profiler saw no device time: busy share not "
               "measured")
-        return
+        return {}
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
     print(f"{tag} device busy {busy_s:.4f} s of the {wall_s:.4f} s "
           f"{what}: idle share {1 - busy_s / wall_s:.3f}; "
@@ -362,12 +495,14 @@ def phase_profile(tag: str, run, wall_s: float, what: str = "partition()",
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"{tag}   {e.self_device_time_total / 1e3:9.2f} ms  "
               f"{e.count:6d}x  {e.key[:90]}")
+    out = {}
     for name, words in groups:
         sel = [e for e in kernels if any(w in e.key.lower() for w in words)]
-        ms = sum(e.self_device_time_total for e in sel) / 1e3
+        ms = out[name] = sum(e.self_device_time_total for e in sel) / 1e3
         print(f"{tag} {name} kernels: {ms:.2f} ms in "
               f"{sum(e.count for e in sel)} calls, "
               f"{ms / 1e3 / busy_s:.3f} of device busy time")
+    return out
 
 
 def _count_queries():
@@ -749,8 +884,8 @@ def phase_flash_vs_plain(tp, dev):
     n_cases, worst = 0, {}
     for shape in tp.FLASH_SHAPES:
         h, hkv, sq, skv, causal, window, off = shape
-        for d in (8, 64, 128, 256):
-            for dtype in (torch.float32, torch.bfloat16):
+        for d in (8, 36, 64, 128, 256):
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
                 q, k, v = tp.qkv(2, h, hkv, sq, skv, d, dtype,
                                  seed=sq * skv + d, device=dev)
                 got = ops.flash_attention(q, k, v, causal, window, off)
@@ -768,7 +903,7 @@ def phase_flash_vs_plain(tp, dev):
                 worst[dtype] = max(worst.get(dtype, 0.0), ratio)
                 n_cases += 1
     print(f"(k) flash_attention == plain on {n_cases} cases (groups 1 and 4, "
-          "D in {8, 64, 128, 256}, causal and not, windows 0/16/512, "
+          "D in {8, 36, 64, 128, 256}, causal and not, windows 0/16/512, "
           "offsets, ragged tiles, rows that see no key = 0): worst "
           + ", ".join(f"{str(k_)[6:]} {v_:.4f}" for k_, v_ in worst.items())
           + " of the tolerance; bitwise equal across launches")
@@ -955,7 +1090,8 @@ def phase_gemma(tp, dev):
                                  f"{r['ratio']:.3f} of its tolerance")
         print(f"(l) flash_attention at a {name} layer (4, 4, 4096, 256) "
               f"bfloat16: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"SDPA {r['library_ms']:.4f} ms (|SDPA - plain| "
+              f"SDPA {r['library_ms']:.4f} ms (kernel/SDPA "
+              f"{r['ms'] / r['library_ms']:.3f}; |SDPA - plain| "
               f"{r['library_err']:.3g}), bound {r['bound_ms']:.4f} ms "
               f"({r['flops']} flops, {r['bytes']} bytes, bound by "
               f"{r['bound_by']}); |kernel - plain| {r['max_abs_err']:.3g}")
@@ -987,8 +1123,9 @@ def phase_gemma(tp, dev):
         "max_abs_err": g["max_abs_err"], "ms": g["ms"],
         "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
         "bound_by": g["bound_by"], "library_ms": g["library_ms"],
-        "check": "within 2e-5 + 2e-5 |plain| (float32), 1e-5 + 1e-2 |plain| "
-                 "(bfloat16) of plain (phases k, l)",
+        "check": "within 2e-5 + 2e-5 |plain| (float32, CUDA cores), 1e-5 + "
+                 "1e-2 |plain| (bfloat16, float16, tensor cores) of plain "
+                 "(phases k, l)",
         "shape": {"B": 4, "H": 4, "Hkv": 1, "S": 4096, "D": 256,
                   "dtype": "bfloat16", "window": 0},
         "local_layer": {key: shapes["local"][key] for key in (

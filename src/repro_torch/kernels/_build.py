@@ -2,8 +2,9 @@
 
 Each kernel is one ``.cu`` file with a plain C launcher, compiled for
 ``sm_90a`` into a shared library under ``kernels/_build/`` (listed in
-``.gitignore``), named by a hash of the source so an edited source is never
-served a stale library.  Nothing is built at import time: :func:`load`
+``.gitignore``), named by a hash of every ``.cu`` and ``.cuh`` file in the
+kernel's directory, so an edited source or header is never served a stale
+library.  Nothing is built at import time: :func:`load`
 builds at first use, and :func:`build` starts one ``nvcc`` per source, all
 at once.
 """
@@ -32,8 +33,11 @@ def source(name: str) -> Path:
 
 
 def _library(name: str) -> Path:
-    digest = hashlib.sha256(source(name).read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in sorted((_KERNELS / name).iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:

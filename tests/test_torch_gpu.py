@@ -13,8 +13,8 @@ sum runs in another order than the plain version's; two launches must then
 agree bit for bit, and the tolerance is: segment_reduce on float32, 1e-5 +
 1e-5 * (the sum of |x| over the segment); fm_interaction, 1e-5 + 1e-5 *
 (the row's sum of e^2); flash_attention, 2e-5 + 2e-5 * |plain| in float32
-and 1e-5 + 1e-2 * |plain| in bfloat16 (``torch_parity.py``); the models'
-logits and scores against the CPU, 2e-4.
+and 1e-5 + 1e-2 * |plain| in bfloat16 and float16 (``torch_parity.py``);
+the models' logits and scores against the CPU, 2e-4.
 """
 import numpy as np
 import pytest
@@ -44,9 +44,11 @@ def cuda():
 
 @pytest.mark.parametrize("t", [None, 4])
 @pytest.mark.parametrize("k", [2, 64, 1000])
-@pytest.mark.parametrize("d", [4, 6, 37, 300])
+@pytest.mark.parametrize("d", [1, 4, 6, 8, 31, 32, 33, 37, 300])
 def test_kernel_matches_plain(cuda, d, k, t):
-    ins = [torch.from_numpy(a) for a in tp.panel(2000, d, k, t, seed=d * k)]
+    # D <= 32 takes the kernel's lane-group path, D > 32 its histogram path
+    ins = [torch.from_numpy(a)
+           for a in tp.panel(2000, d, k, t, seed=d * k, odd=True)]
     want = jet_gain_ref(*ins, k)
     before = kernels.launch_counts["jet_gain"]
     got = ops.jet_gain_from_parts(*(x.to(cuda) for x in ins), k)
@@ -127,8 +129,9 @@ def test_fm_interaction_matches_plain(cuda, b, f, d, dtype):
     assert tp.fm_error_ratio(got, want, emb) <= 1
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [8, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [8, 36, 64, 128, 256])
 @pytest.mark.parametrize("shape", tp.FLASH_SHAPES)
 def test_flash_attention_matches_plain(cuda, shape, d, dtype):
     h, hkv, sq, skv, causal, window, off = shape

@@ -118,12 +118,16 @@ def assert_matches_reference(name: str) -> None:
     assert got.imbalance == want.imbalance
 
 
-def panel(n: int, d: int, k: int, t: int | None, seed: int):
+def panel(n: int, d: int, k: int, t: int | None, seed: int,
+          odd: bool = False):
     """A random jet_gain ELL panel as numpy (nbr_parts, wgt, parts).
 
     Weights in [0, 3) make many ties; every 16th row is a ghost row (all
     slots part k, weight 0, own part k) and every 16th row from the 8th on
-    touches only its own part.  ``t=None`` gives the unbatched (N, D) form.
+    touches only its own part.  With ``odd``, every 16th row from the 4th on
+    also carries part ids outside [0, k] in every other slot, and every 16th
+    row from the 12th on has zero weights, so all its parts tie at
+    connectivity 0.  ``t=None`` gives the unbatched (N, D) form.
     """
     rng = np.random.default_rng(seed)
     shape = (n, d) if t is None else (t, n, d)
@@ -134,6 +138,11 @@ def panel(n: int, d: int, k: int, t: int | None, seed: int):
     nbr_parts[..., ::16, :] = k
     parts[..., ::16] = k
     wgt[::16] = 0
+    if odd:
+        ids = np.array([-2**31, -7, -1, k + 1, k + 100, 2**31 - 1])
+        nbr_parts[..., 4::16, ::2] = rng.choice(
+            ids, nbr_parts[..., 4::16, ::2].shape).astype(np.int32)
+        wgt[12::16] = 0
     return nbr_parts, wgt, parts
 
 
