@@ -20,8 +20,9 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
   (b2) segment_reduce against plain: M in {1, 255, 256, 257, 10^5,
       2.4*10^7} at F = 1 and up to 10^5 at F in {3, 128}; all rows in one
       segment, every row its own, runs spanning many tiles, mostly empty
-      segments, ids >= S.  int32 exact; float32 within 1e-5 + 1e-5 * (the
-      sum of |x| over the segment) and bitwise equal across two launches.
+      segments, ids >= S, and a ghost run (id S-1) over most rows.  int32
+      exact; float32 within 1e-5 + 1e-5 * (the sum of |x| over the
+      segment) and bitwise equal across two launches.
   (b3) slot() on the card equals the CPU's over [-2^16, 2^22] and the
       float32 windows around every 2^j (its log2 correction table).
   (c) card against golden: partition() on the card, every backend and
@@ -42,7 +43,10 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       parts, trial parts, cut and level stats equal (e)'s bit for bit, and
       segment_reduce launched as often as the loop's queries need; the
       kernel, its plain version and index_add_ timed at the finest level's
-      shapes; the top device operations and the sort's share of them.
+      shapes; the top device operations and the sort's share of them; the
+      kernel timed at every shape a partition() gives it (the sum of
+      launches x time); and a record at F = 128, M = 2^20 (runs of about 8
+      rows) against plain and index_add_.
   (h) power-law graph: rmat scale 20, edge factor 8, k=64, T=4, sorted
       against dense: equal parts; the time and peak memory of each, and
       the padded degree and state bytes that ell would need there.
@@ -55,7 +59,8 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       cells, kernel path against plain path, one launch per call;
       retrieval_cand (10^6 candidates) against float64; the kernel, its
       plain version and each serve step timed with CUDA events; examples/s
-      and peak memory.
+      and peak memory; the two serve steps under torch.profiler (device
+      busy time, idle share, the kernel's device time).
   (k) flash_attention against plain: groups 1 and 4, D in {8, 36, 64, 128,
       256}, causal and not, windows 0/16/512, query offsets, Sq != Skv,
       ragged tiles, rows that see no key (exactly 0), float32 (the CUDA-core
@@ -464,8 +469,10 @@ def _jet_gain_levels(g, cfg) -> None:
 
 
 PARTITION_GROUPS = (("sort", ("sort",)),
-                    ("segment_reduce", ("tile_pass", "carry_pass")),
+                    ("segment_reduce", ("splits_pass", "tiles_pass",
+                                        "carry_pass")),
                     ("jet_gain", ("jet_gain",)))
+FM_GROUPS = (("fm_interaction", ("fm_kernel",)),)
 
 
 def phase_profile(tag: str, run, wall_s: float, what: str = "partition()",
@@ -473,7 +480,8 @@ def phase_profile(tag: str, run, wall_s: float, what: str = "partition()",
     """``run()`` once more under torch.profiler: device busy time against
     ``wall_s``, the unprofiled run's wall time, the kernels that take the
     most device time, and the share of each group of kernel names.  Returns
-    each group's device time in ms (empty if the profiler saw none)."""
+    each group's device time in ms, and its launches under "<group> calls"
+    (empty if the profiler saw none)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -499,6 +507,7 @@ def phase_profile(tag: str, run, wall_s: float, what: str = "partition()",
     for name, words in groups:
         sel = [e for e in kernels if any(w in e.key.lower() for w in words)]
         ms = out[name] = sum(e.self_device_time_total for e in sel) / 1e3
+        out[f"{name} calls"] = sum(e.count for e in sel)
         print(f"{tag} {name} kernels: {ms:.2f} ms in "
               f"{sum(e.count for e in sel)} calls, "
               f"{ms / 1e3 / busy_s:.3f} of device busy time")
@@ -623,7 +632,15 @@ def phase_sorted_full_width(tp, dev, g, cfg_ell, res_ell):
           f"S={s2}, a ghost run of {int((~valid).sum()) // t} rows per "
           f"trial): {ms2:.4f} ms, bound "
           f"{bytes2 / HBM_BYTES_PER_S * 1e3:.4f} ms ({bytes2} bytes)")
-    phase_profile("(g)", lambda: partition(g, cfg), res.times["total_s"])
+    for what, args in (("run-weight", (data, ids, s)),
+                       ("conn_self", (data2, ids2, s2))):
+        _segment_kernels(what, lambda a=args: ops.segment_sum_sorted(*a))
+    groups = phase_profile("(g)", lambda: partition(g, cfg),
+                           res.times["total_s"])
+    print(f"(g) segment_reduce device time per partition(): "
+          f"{groups.get('segment_reduce', 'not measured')} ms (the profile)")
+    _segment_levels(g, cfg)
+    _segment_wide(dev)
     return {
         "name": "segment_reduce", "route": "cuda",
         "source": "src/repro_torch/kernels/segment_reduce/segment_reduce.cu",
@@ -634,7 +651,109 @@ def phase_sorted_full_width(tp, dev, g, cfg_ell, res_ell):
         "check": "int32 exact, float32 within tolerance, against plain "
                  "(phases b2, c, d, g)",
         "shape": {"M": ids.numel(), "F": 1, "S": s},
+        "conn_self_sum": {"ms": ms2, "bound_ms": bytes2 / HBM_BYTES_PER_S
+                          * 1e3, "shape": {"M": ids2.numel(), "F": 1,
+                                           "S": s2}},
+        "device_ms_per_partition": groups.get("segment_reduce"),
     }
+
+
+def _segment_kernels(what: str, call, reps: int = 20) -> None:
+    """Each kernel's device time in one segment_reduce call, from
+    torch.profiler over ``reps`` calls (each launches each kernel once; the
+    profiler may miss the first few, so the mean is over the launches it
+    saw)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        m = re.search(r"(splits_pass|tiles_pass_wide|tiles_pass|carry_pass)",
+                      e.key)
+        if e.device_type == DeviceType.CUDA and m:
+            times[m.group(1)] = e.self_device_time_total / e.count / 1e3
+    print(f"(g) segment_reduce kernels at the {what} sum, device ms per "
+          "call: " + (", ".join(f"{k} {v:.4f}" for k, v in times.items())
+                      or "not measured"))
+
+
+def _segment_levels(g, cfg) -> None:
+    """One sorted partition() more, keeping the first segment_reduce inputs
+    of each shape (M, F, S): the kernel timed at each shape, beside its
+    launches there and its bound."""
+    from collections import Counter
+
+    from repro_torch.core.partition import partition
+    from repro_torch.kernels.segment_reduce import ops
+
+    first, launches = {}, Counter()
+    kernel = ops.segment_sum_sorted
+
+    def keep(data, seg_ids, num_segments):
+        key = (*data.shape, num_segments)
+        launches[key] += 1
+        if key not in first:
+            first[key] = (data.clone(), seg_ids.clone(), num_segments)
+        return kernel(data, seg_ids, num_segments)
+
+    with swapped(ops, "segment_sum_sorted", keep):
+        partition(g, cfg)
+    total = 0.0
+    for key in sorted(first, key=lambda k_: -k_[0]):
+        ins = first[key]
+        ms = _time_ms(lambda ins=ins: kernel(*ins), 20)
+        total += launches[key] * ms
+        m, f, s = key
+        nbytes = (m + m * f + s * f) * 4
+        print(f"(g) segment_reduce at M, F, S = {key}: {launches[key]} "
+              f"launches, {ms:.4f} ms each, bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    del first
+    print(f"(g) segment_reduce, the sum of launches x time over the shapes: "
+          f"{total:.2f} ms per partition()")
+
+
+def _segment_wide(dev) -> None:
+    """A record at F = 128 (the shape of a GNN's scatter_sum): M = 2^20
+    float32 rows in runs of about 8, against plain and index_add_."""
+    import torch
+
+    from repro_torch.kernels.segment_reduce import ops
+    from repro_torch.kernels.segment_reduce.ref import segment_sum_sorted_ref
+
+    m, f = 2**20, 128
+    s = m // 8
+    gen = torch.Generator(device=dev).manual_seed(128)
+    seg = torch.sort(torch.randint(0, s, (m,), device=dev, generator=gen)
+                     ).values.int()
+    data = torch.randn(m, f, device=dev, generator=gen)
+    got, want = ops.segment_sum_sorted(data, seg, s), \
+        segment_sum_sorted_ref(data, seg, s)
+    bound = 1e-5 + 1e-5 * segment_sum_sorted_ref(data.abs(), seg, s)
+    ratio = float(((got - want).abs() / bound).max())
+    if not ratio <= 1:
+        raise AssertionError(f"(g) segment_reduce at F={f}: {ratio:.3f} of "
+                             "its tolerance")
+    idx = seg.long()
+    ms = _time_ms(lambda: ops.segment_sum_sorted(data, seg, s), 20)
+    plain_ms = _time_ms(lambda: segment_sum_sorted_ref(data, seg, s), 5)
+    library_ms = _time_ms(lambda: torch.zeros(s, f, device=dev).index_add_(
+        0, idx, data), 20)
+    nbytes = (m + m * f + s * f) * 4
+    print(f"(g) segment_reduce at F={f} (M={m}, S={s}, float32, runs of about "
+          f"8 rows): {ms:.4f} ms, plain {plain_ms:.4f} ms, zeros + "
+          f"index_add_ {library_ms:.4f} ms, bound "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes); "
+          f"{ratio:.4f} of the float32 tolerance")
 
 
 def phase_powerlaw(tp):
@@ -860,6 +979,18 @@ def phase_fm_serving(tp, dev):
         f"{name} {v:.4f} ms" for name, v in steps_ms.items())
         + f"; serve_bulk {b / steps_ms['serve_bulk'] * 1e3:.4g} examples/s, "
         f"serve_p99 {512 / steps_ms['serve_p99'] * 1e3:.4g} examples/s")
+    reps = 100  # a window of serve steps long enough for the profiler
+    groups = phase_profile(
+        "(j)", lambda: [cells[name].step_fn(*cells[name].args)
+                        for _ in range(reps)
+                        for name in ("serve_p99", "serve_bulk")],
+        reps * (steps_ms["serve_p99"] + steps_ms["serve_bulk"]) / 1e3,
+        f"{reps} x (serve_p99 + serve_bulk) steps", FM_GROUPS)
+    # two launches a pair of steps; the profiler may drop the first few
+    calls = groups.get("fm_interaction calls", 0)
+    pair_ms = 2 * groups["fm_interaction"] / calls if calls else None
+    print(f"(j) fm_interaction device time per serve_p99 + serve_bulk pair: "
+          f"{pair_ms if pair_ms is not None else 'not measured'} ms")
     return {
         "name": "fm_interaction", "route": "cuda",
         "source": "src/repro_torch/kernels/fm_interaction/fm_interaction.cu",
@@ -872,6 +1003,7 @@ def phase_fm_serving(tp, dev):
         "check": "within 1e-5 + 1e-5 * sum of e^2 per row of plain "
                  "(phases i, j)",
         "shape": {"B": b, "F": f, "D": d, "dtype": "float32"},
+        "device_ms_per_serve_pair": pair_ms,
     }
 
 

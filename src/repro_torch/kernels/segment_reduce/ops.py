@@ -37,29 +37,35 @@ def _check(data, seg_ids, num_segments: int) -> None:
 
 @functools.cache
 def _library():
-    """``segment_reduce.cu``'s C launcher and its tile size, built at first use."""
+    """``segment_reduce.cu``'s C launcher and its tile count, built at
+    first use."""
     lib = _build.load("segment_reduce")
     fn = lib.segment_sum_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + \
         [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn, lib.segment_sum_tile_rows()
+    tiles = lib.segment_sum_tiles
+    tiles.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    tiles.restype = ctypes.c_longlong
+    return fn, tiles
 
 
 def _segment_sum_cuda(data, seg_ids, num_segments: int):
     """Launch ``segment_reduce.cu`` on the current stream."""
     if not (data.is_contiguous() and seg_ids.is_contiguous()):
         raise ValueError("segment_reduce needs contiguous data and seg_ids")
-    fn, tile_rows = _library()
+    fn, tile_count = _library()
     m, f = data.shape
-    tiles = -(-m // tile_rows)
+    tiles = tile_count(m, f, num_segments)
     out = torch.empty((num_segments, f), dtype=data.dtype, device=data.device)
-    head = torch.empty((tiles, f), dtype=data.dtype, device=data.device)
-    tail = torch.empty_like(head)
+    # per tile: the partials of its first output (lead) and of the rows
+    # after its last output (trail), its first row and its first output
+    scratch = torch.empty(2 * tiles * f + 2 * tiles + 1, dtype=torch.int32,
+                          device=data.device)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(data.data_ptr(), seg_ids.data_ptr(), out.data_ptr(),
-                 head.data_ptr(), tail.data_ptr(), m, f, num_segments,
+                 scratch.data_ptr(), m, f, num_segments,
                  int(data.dtype == torch.float32), stream)
     if err != 0:
         raise RuntimeError(

@@ -78,6 +78,37 @@ def test_segment_reduce_matches_plain(cuda, m, f, kind, dtype):
         assert bool(((got - want).abs() <= bound).all())
 
 
+def test_segment_reduce_edge_inputs(cuda):
+    # inputs the panels do not make: data and ids that start 4 bytes past
+    # a 16-byte boundary (the kernel's scalar loads), F = 4 both aligned
+    # and not, no rows, no segments, F = 0, and every row dropped
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    m, s = 50_001, 9_000
+    seg = torch.sort(torch.randint(-50, s + 50, (m + 1,), device=cuda,
+                                   generator=gen)).values.int()
+    cases = []
+    for f in (1, 4):
+        flat = torch.randint(-2**31, 2**31, ((m + 1) * f + 1,), device=cuda,
+                             generator=gen, dtype=torch.int64).int()
+        cases.append((flat[:m * f].view(m, f), seg[:m]))
+        cases.append((flat[1:m * f + 1].view(m, f), seg[1:]))
+    cases += [(torch.zeros(0, 1, dtype=torch.int32, device=cuda),
+               seg[:0]),
+              (torch.ones(7, 0, dtype=torch.int32, device=cuda), seg[:7]),
+              (torch.ones(m, 1, dtype=torch.int32, device=cuda),
+               torch.full((m,), -3, dtype=torch.int32, device=cuda)),
+              (torch.ones(m, 1, dtype=torch.int32, device=cuda),
+               torch.full((m,), s, dtype=torch.int32, device=cuda))]
+    for data, ids in cases:
+        for num_segments in (0, 1, s):
+            got = sr.segment_sum_sorted(data, ids, num_segments)
+            want = segment_sum_sorted_ref(data, ids, num_segments)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (tuple(data.shape),
+                                            data.data_ptr() % 16,
+                                            num_segments)
+
+
 def test_argmax_argmin_take_first_index(cuda):
     x = torch.from_numpy(np.random.default_rng(0).integers(0, 3, (500, 40)))
     for fn in (torch.argmax, torch.argmin):

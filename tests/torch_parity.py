@@ -167,7 +167,7 @@ def slot_losses() -> np.ndarray:
         np.arange(-2**16, 2**22 + 1), x.astype(np.int64)])).astype(np.int32)
 
 
-SEGMENT_KINDS = ("one", "each", "span", "empty", "drop")
+SEGMENT_KINDS = ("one", "each", "span", "empty", "drop", "ghost")
 
 
 def segment_case(m: int, f: int, kind: str, dtype, seed: int, device):
@@ -177,7 +177,10 @@ def segment_case(m: int, f: int, kind: str, dtype, seed: int, device):
     kind: ``one`` all rows in one segment; ``each`` every row its own;
     ``span`` four segments, so runs span many tiles; ``empty`` 4m+7
     segments, most of them empty; ``drop`` a third of the rows carry ids
-    >= num_segments.  int32 values cover the whole range, so sums wrap.
+    >= num_segments; ``ghost`` short runs over a fifth of the rows, then one
+    run at id num_segments - 1 over the rest, as the sorted backend's sums
+    by run vertex give it (the ghost vertex).  int32 values cover the whole
+    range, so sums wrap.
     """
     import torch
 
@@ -197,6 +200,10 @@ def segment_case(m: int, f: int, kind: str, dtype, seed: int, device):
     elif kind == "drop":
         s = max(2 * m // 3, 1)
         seg = torch.randint(0, s + m // 3 + 1, (m,), **kw)
+    elif kind == "ghost":
+        s = m // 4 + 2
+        seg = torch.full((m,), s - 1, dtype=torch.int64, device=device)
+        seg[:m // 5] = torch.randint(0, s - 1, (m // 5,), **kw)
     else:
         raise ValueError(f"unknown segment case kind {kind!r}")
     seg = torch.sort(seg).values.int()
