@@ -16,13 +16,17 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       (D in {1, 4, 6, 8, 31, 32, 33, 37, 300}: the lane-group path up to 32
       and the histogram path above; k in {2, 64, 1000}, T in {1, 4}, with
       ties, ghost rows, rows with no other part, part ids outside [0, k] and
-      rows whose parts all tie at connectivity 0): exact.
+      rows whose parts all tie at connectivity 0); a fleet's panels (B, T,
+      N, D) with per-lane weights (B, N, D), B up to 17; strided views:
+      exact, one launch a call.
   (b2) segment_reduce against plain: M in {1, 255, 256, 257, 10^5,
       2.4*10^7} at F = 1 and up to 10^5 at F in {3, 128}; all rows in one
       segment, every row its own, runs spanning many tiles, mostly empty
       segments, ids >= S, and a ghost run (id S-1) over most rows.  int32
       exact; float32 within 1e-5 + 1e-5 * (the sum of |x| over the
-      segment) and bitwise equal across two launches.
+      segment) and bitwise equal across two launches; bfloat16 and float16
+      (float32 sums, rounded once) within that plus one rounding step of
+      the output; strided views.
   (b3) slot() on the card equals the CPU's over [-2^16, 2^22] and the
       float32 windows around every 2^j (its log2 correction table).
   (c) card against golden: partition() on the card, every backend and
@@ -51,9 +55,9 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       against dense: equal parts; the time and peak memory of each, and
       the padded degree and state bytes that ell would need there.
   (i) fm_interaction against plain: B in {1, 255, 256, 257, 512, 262144},
-      F in {1, 8, 39}, D in {1, 10, 16, 128}, float32 and bfloat16: within
-      1e-5 + 1e-5 * (the row's sum of e^2) and bitwise equal across two
-      launches.
+      F in {1, 8, 39}, D in {1, 10, 16, 128}, float32, bfloat16 and
+      float16: within 1e-5 + 1e-5 * (the row's sum of e^2) and bitwise equal
+      across two launches; a strided view.
   (j) FM serving at full width (39 fields, D=10, 262,144 rows per field):
       serve_p99 (B=512) and serve_bulk (B=262,144) through the port's serve
       cells, kernel path against plain path, one launch per call;
@@ -66,7 +70,7 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       ragged tiles, rows that see no key (exactly 0), float32 (the CUDA-core
       kernel), bfloat16 and float16 (the tensor-core kernel): within 2e-5 +
       2e-5 * |plain| (float32) or 1e-5 + 1e-2 * |plain| (bfloat16, float16)
-      and bitwise equal across two launches.
+      and bitwise equal across two launches; strided (transposed) views.
   (l) Gemma-3 1B serving at full width (bfloat16, seeded weights): prefill
       4 prompts of 4096 tokens, then 32 greedy decode steps, through
       ``repro_torch.launch.serve.generate``: 26 flash_attention launches per
@@ -79,6 +83,20 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       ``F.scaled_dot_product_attention`` timed at a global and a local
       layer's shapes (with the kernel/SDPA time ratio), and the smoke
       config's logits on the card against the CPU within 2e-4.
+  (m) the fleet at full width: 48 graphs (16 grid2d of sides 241..256, 16
+      small_world of 60000 + 365 i vertices, 8 grid3d of sides 33..40, 8
+      random_geometric of 32768 + 1024 i vertices), k=64, T=4, ell, through
+      ``partition_fleet`` and through a loop of standalone ``partition()``
+      calls: every member equal bit for bit, balanced, cuts recomputed on
+      the host; jet_gain launched once per batched loop iteration, fewer
+      times than the loop's; buckets, graphs/s of both, peak memory, host
+      reads, and jet_gain at the largest bucket's finest shapes.  (No
+      profile: the fleet's ~10^6 device operations take the profiler far
+      longer than the script's time allows.)
+  (n) the fleet against the reference: tests/test_fleet.py's fleet plus its
+      over-padded member, dense, sorted and ell, k in {2, 8, 33}, T in {1,
+      2}: the card's fleet equals the CPU's and the JAX reference's
+      standalone runs (the golden file).
   The script ends by checking that no jax or repro (JAX package) module was
   imported.  ``--phases`` runs a subset, for debugging; such a run prints no
   result line.
@@ -228,12 +246,54 @@ def phase_kernel_vs_plain(tp, dev):
                             f"(b) jet_gain differs from plain at T={t} D={d} "
                             f"k={k}")
                 n_cases += 1
+    # a fleet bucket's panels: (B, T, N, D) with per-lane weights (B, N, D)
+    n_lanes = 0
+    for b, t in ((3, 2), (2, 2), (17, 4)):
+        for d in (1, 6, 12, 17, 33, 300):
+            panels = [tp.panel(max(1000, 60000 // d), d, 64, t, seed=d + i,
+                               odd=True) for i in range(b)]
+            ins = [torch.from_numpy(np.stack(a)).to(dev)
+                   for a in zip(*panels)]
+            want = jet_gain_ref(*ins, 64)
+            got = _one_launch("jet_gain", ops.jet_gain_from_parts, *ins, 64)
+            if not all(torch.equal(g_, w) for g_, w in zip(got, want)):
+                raise AssertionError(f"(b) jet_gain with lane weights differs "
+                                     f"from plain at B={b} T={t} D={d}")
+            n_lanes += 1
+    # strided views: panels sliced out of wider ones, parts every other column
+    nbr_parts, wgt, parts = (torch.from_numpy(a).to(dev)
+                             for a in tp.panel(20000, 9, 64, 4, seed=9))
+    views = (nbr_parts[..., :6], wgt[:, 3:9],
+             torch.stack([parts, parts], -1)[..., 1])
+    got = _one_launch("jet_gain", ops.jet_gain_from_parts, *views, 64)
+    want = jet_gain_ref(*(v.contiguous() for v in views), 64)
+    if any(v.is_contiguous() for v in views) or \
+            not all(torch.equal(g_, w) for g_, w in zip(got, want)):
+        raise AssertionError("(b) jet_gain on strided views differs from plain")
     x = torch.from_numpy(np.random.default_rng(0).integers(0, 3, (500, 40)))
     for fn in (torch.argmax, torch.argmin):
         if not torch.equal(fn(x.to(dev), dim=1).cpu(), fn(x, dim=1)):
             raise AssertionError(f"(b) {fn.__name__} ties differ on the card")
     print(f"(b) jet_gain == plain on {n_cases} panels (D <= 32 lane groups, "
-          "D > 32 histogram); argmax/argmin ties agree")
+          f"D > 32 histogram), {n_lanes} fleet panels with per-lane weights "
+          "(B up to 17) and strided views (one launch each); argmax/argmin "
+          "ties agree")
+
+
+def _one_launch(name, fn, *args):
+    """fn(*args) on the card; fails unless it launched kernel ``name``
+    exactly once."""
+    import torch
+
+    from repro_torch import kernels
+
+    before = kernels.launch_counts[name]
+    out = fn(*args)
+    torch.cuda.synchronize()
+    if kernels.launch_counts[name] != before + 1:
+        raise AssertionError(f"{name}: {kernels.launch_counts[name] - before}"
+                             " launches for one call")
+    return out
 
 
 def phase_segment_vs_plain(tp, dev):
@@ -272,9 +332,39 @@ def phase_segment_vs_plain(tp, dev):
                     worst = max(worst, float((err / bound).max()))
                 n_cases += 1
                 del data, seg, want, got, again
+    # bfloat16 and float16: float32 sums rounded once; strided views
+    worst16, n16 = 0.0, 0
+    for m, f in ((257, 1), (10**5, 1), (10**6, 1), (10**5, 3), (4099, 128)):
+        for kind in tp.SEGMENT_KINDS:
+            for dtype in (torch.bfloat16, torch.float16):
+                data, seg, s = tp.segment_case(m, f, kind, dtype, seed=m + f,
+                                               device=dev)
+                got = _one_launch("segment_reduce", ops.segment_sum_sorted,
+                                  data, seg, s)
+                again = ops.segment_sum_sorted(data, seg, s)
+                want = segment_sum_sorted_ref(data, seg, s)
+                ratio = tp.segment_error_ratio(got, want, data, seg, s)
+                if got.dtype != dtype or not torch.equal(got, again) or \
+                        not ratio <= 1:
+                    raise AssertionError(
+                        f"(b2) segment_reduce M={m} F={f} {kind} {dtype}: "
+                        f"{ratio:.3f} of its tolerance, or launches differ")
+                worst16, n16 = max(worst16, ratio), n16 + 1
+    data, seg, s = tp.segment_case(10**5, 6, "span", torch.float32, seed=6,
+                                   device=dev)
+    dv, sv = data[:, ::2], torch.stack([seg, seg], -1)[:, 0]
+    got = _one_launch("segment_reduce", ops.segment_sum_sorted, dv, sv, s)
+    ratio = tp.segment_error_ratio(
+        got, segment_sum_sorted_ref(dv.contiguous(), sv.contiguous(), s),
+        dv, sv, s)
+    if dv.is_contiguous() or sv.is_contiguous() or not ratio <= 1:
+        raise AssertionError(f"(b2) segment_reduce on strided views: "
+                             f"{ratio:.3f} of its tolerance")
     print(f"(b2) segment_reduce == plain on {n_cases} panels (int32 exact; "
           f"float32 at most {worst:.3f} of its tolerance; bitwise equal "
-          f"across launches) in {time.perf_counter() - t0:.1f} s")
+          f"across launches); bfloat16/float16 on {n16} panels, at most "
+          f"{worst16:.3f} of the tolerance plus one rounding step; strided "
+          f"views {ratio:.3f}; in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_slot(tp, dev):
@@ -788,6 +878,201 @@ def phase_powerlaw(tp):
 
 
 # ---------------------------------------------------------------------------
+# the fleet: shape-bucketed, batched V-cycles over many graphs
+# ---------------------------------------------------------------------------
+
+def phase_fleet_small(tp):
+    """(n): the reference fleet test's graphs on every backend, k and T:
+    the card's fleet equals the CPU's and the reference's standalone runs
+    (golden)."""
+    from repro_torch.core import graph as gr
+    from repro_torch.core.partition import PartitionConfig, partition_fleet
+    from repro_torch.data import graphs as gen
+
+    golden = tp.load_golden_fleet()
+    graphs = tp.fleet_graphs(gr, gen)
+    t0 = time.perf_counter()
+    launched = {}
+    for name in tp.fleet_case_names():
+        cfg = PartitionConfig(**tp.fleet_config_kwargs(name))
+        card, launches = _counted(partition_fleet, graphs, cfg)
+        cpu = partition_fleet(graphs, cfg, device="cpu")
+        for i, (c, h) in enumerate(zip(card.results, cpu.results)):
+            got = tp.member_summary(c)
+            if got != tp.member_summary(h) or c.imbalance != h.imbalance \
+                    or got != golden[name][i]:
+                raise AssertionError(f"(n) {name} member {i}: card {got} != "
+                                     f"cpu or golden {golden[name][i]}")
+        if sorted(b.indices for b in card.buckets) != [[0, 1], [2, 3]]:
+            raise AssertionError(f"(n) {name}: buckets "
+                                 f"{[b.indices for b in card.buckets]}")
+        for kernel in launches:
+            launched[kernel] = launched.get(kernel, 0) + launches[kernel]
+    if not launched.get("jet_gain") or not launched.get("segment_reduce"):
+        raise AssertionError(f"(n) launches {launched}: ell and sorted must "
+                             "run their kernels")
+    print(f"(n) {len(tp.fleet_case_names())} fleets (grids 13x13, 12x12, 8x8 "
+          f"and 8x8 padded to {tp.FLEET_OVERPAD}; dense, sorted, ell; k in "
+          f"{tp.FLEET_KS}; T in {tp.FLEET_TRIALS}): card == cpu == the JAX "
+          f"reference's standalone runs (golden); launches {launched} in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+FLEET_JOBS = (
+    [("grid2d", (s, s), {}) for s in range(241, 257)]
+    + [("small_world", (60000 + 365 * i,), {"seed": i}) for i in range(16)]
+    + [("grid3d", (s, s, s), {}) for s in range(33, 41)]
+    + [("random_geometric", (32768 + 1024 * i,), {"seed": i})
+       for i in range(8)])
+
+
+def _host_reads(run):
+    """run() with CUDA's sync debug mode on: (its result, the number of
+    synchronizing device-to-host reads it made)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def phase_fleet_full_width(tp, dev):
+    """(m): 48 graphs of a mesh/GNN pipeline's dataset, partitioned as one
+    fleet and one by one; every member equal, bit for bit."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import graph as gr
+    from repro_torch.core.partition import (PartitionConfig, partition,
+                                            partition_fleet)
+    from repro_torch.data import graphs as gen
+    from repro_torch.kernels.jet_gain import ops
+    from repro_torch.kernels.jet_gain.ref import jet_gain_ref
+
+    t0 = time.perf_counter()
+    graphs = [getattr(gen, fn)(*a, **kw) for fn, a, kw in FLEET_JOBS]
+    n_all = sum(int(g.n) for g in graphs)
+    m_all = sum(int(g.m) for g in graphs)
+    print(f"(m) {len(graphs)} graphs (16 grid2d 241..256, 16 small_world "
+          f"60000+365i, 8 grid3d 33..40, 8 random_geometric 32768+1024i): "
+          f"{n_all} vertices, {m_all} directed edges (made in "
+          f"{time.perf_counter() - t0:.1f} s)")
+    cfg = PartitionConfig(k=64, trials=4, backend="ell")
+
+    # the fleet: counts from 0 just before, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    fres, fleet_reads = _host_reads(lambda: partition_fleet(graphs, cfg))
+    fleet_s = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+
+    # the standalone loop
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    solos, solo_reads = _host_reads(
+        lambda: [partition(g, cfg) for g in graphs])
+    solo_s = time.perf_counter() - t0
+    solo_launches = dict(kernels.launch_counts)
+
+    for i, (g, res, solo) in enumerate(zip(graphs, fres.results, solos)):
+        if tp.member_summary(res) != tp.member_summary(solo) or \
+                res.imbalance != solo.imbalance or \
+                not torch.equal(res.parts, solo.parts) or \
+                not torch.equal(res.trial_parts, solo.trial_parts):
+            raise AssertionError(f"(m) member {i} ({FLEET_JOBS[i][:2]}) "
+                                 f"differs from its standalone run")
+        n, k = int(g.n), cfg.k
+        parts = res.parts.cpu().numpy()[:n]
+        src, dst = g.esrc.numpy()[: int(g.m)], g.adjncy.numpy()[: int(g.m)]
+        cut = int(g.adjwgt.numpy()[: int(g.m)][parts[src] != parts[dst]]
+                  .sum()) // 2
+        if not res.balanced or cut != res.cut:
+            raise AssertionError(f"(m) member {i}: balanced {res.balanced}, "
+                                 f"cut {res.cut} != recomputed {cut}")
+    # one batched loop iteration launches jet_gain once for the bucket
+    batched, per_bucket = 0, []
+    for b in fres.buckets:
+        its = [max(max(fres.results[j].level_stats[li]["iterations"])
+                   for j in b.indices) for li in range(b.levels)]
+        per_bucket.append(its)
+        batched += sum(its)
+    standalone = sum(max(st["iterations"]) for r in solos
+                     for st in r.level_stats)
+    if launches.get("jet_gain", 0) != batched or \
+            solo_launches.get("jet_gain", 0) != standalone or \
+            not batched < standalone:
+        raise AssertionError(
+            f"(m) jet_gain launches {launches} != batched iterations "
+            f"{batched}, or standalone {solo_launches} != {standalone}, or "
+            "not fewer")
+    for b, its in zip(fres.buckets, per_bucket):
+        print(f"(m) bucket {list(b.capacity)}: {len(b.indices)} members "
+              f"{b.indices}, {b.levels} levels, batched loop iterations per "
+              f"level (coarsest first) {its}")
+    print(f"(m) every member == its standalone partition() bit for bit "
+          f"(parts, trial parts, cuts, balance, levels, level stats); all "
+          f"balanced, cuts recomputed on the host; cuts "
+          f"{[r.cut for r in fres.results]}")
+    print(f"(m) fleet {fleet_s:.3f} s ({len(graphs) / fleet_s:.4f} graphs/s) "
+          f"against the standalone loop {solo_s:.3f} s "
+          f"({len(graphs) / solo_s:.4f} graphs/s): {solo_s / fleet_s:.3f}x; "
+          "phase times " + json.dumps(
+              {kk: round(v, 3) for kk, v in fres.times.items()
+               if isinstance(v, float)}))
+    print(f"(m) jet_gain launches: fleet {batched} (= the batched "
+          f"iterations), standalone {standalone}; max_memory_allocated "
+          f"{peak} bytes (fleet)")
+    print(f"(m) host reads (CUDA sync debug mode): fleet {fleet_reads}, "
+          f"standalone loop {solo_reads}; per bucket level, 2 in coarsening "
+          "(the two-hop trigger, the (B, 3) stats) and one per batched loop "
+          "iteration plus one, and one transfer of all results at the end")
+
+    # jet_gain at the largest bucket's finest shapes, as the path gives it
+    big = max(fres.buckets, key=lambda b: len(b.indices) * b.capacity[0])
+    cap = big.capacity
+    gb = gr.stack_bucket([graphs[j] for j in big.indices], cap).to(dev)
+    width = big.level_stats[-1]["ell_width"]
+    tparts = torch.stack([
+        torch.cat([fres.results[j].trial_parts[:, :cap[0]],
+                   torch.full((cfg.trials, max(0, cap[0] - graphs[j].n_max)),
+                              cfg.k, dtype=torch.int32, device=dev)], -1)
+        for j in big.indices])
+    nbr, wgt = ops.csr_to_ell(gb, width)
+    nbr_parts = ops.lookup_nbr_parts(nbr, tparts, cfg.k)
+    got = ops.jet_gain_from_parts(nbr_parts, wgt, tparts, cfg.k)
+    want = jet_gain_ref(nbr_parts, wgt, tparts, cfg.k)
+    err = max(int((a - b_).abs().max()) for a, b_ in zip(got, want))
+    ms = _time_ms(lambda: ops.jet_gain_from_parts(nbr_parts, wgt, tparts,
+                                                  cfg.k), 50)
+    plain_ms = _time_ms(lambda: jet_gain_ref(nbr_parts, wgt, tparts, cfg.k), 5)
+    nbytes = (nbr_parts.numel() + wgt.numel() + 4 * tparts.numel()) * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    b, t, nn, d = nbr_parts.shape
+    print(f"(m) jet_gain at the largest bucket's finest level (B={b}, T={t}, "
+          f"N={nn}, D={d}, k={cfg.k}, per-lane weights): {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes)")
+    if err != 0:
+        raise AssertionError(f"(m) jet_gain differs from plain by {err}")
+    return {"launches": batched, "standalone_launches": standalone,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "max_abs_err": err, "shape": {"B": b, "T": t, "N": nn, "D": d,
+                                           "k": cfg.k},
+            "graphs_per_s": len(graphs) / fleet_s,
+            "standalone_graphs_per_s": len(graphs) / solo_s}
+
+
+# ---------------------------------------------------------------------------
 # serving: FM (fm_interaction) and Gemma-3 1B (flash_attention)
 # ---------------------------------------------------------------------------
 
@@ -866,7 +1151,7 @@ def phase_fm_vs_plain(tp, dev):
             for d in (1, 10, 16, 128):
                 gen = torch.Generator(device=dev).manual_seed(b * f + d)
                 e32 = torch.randn(b, f, d, generator=gen, device=dev)
-                for dtype in (torch.float32, torch.bfloat16):
+                for dtype in (torch.float32, torch.bfloat16, torch.float16):
                     emb = e32.to(dtype)
                     got = ops.fm_interaction(emb)
                     again = ops.fm_interaction(emb)
@@ -882,9 +1167,17 @@ def phase_fm_vs_plain(tp, dev):
                     worst = max(worst, ratio)
                     n_cases += 1
                 del e32, emb, got, again, want
-    print(f"(i) fm_interaction == plain on {n_cases} panels (float32 and "
-          f"bfloat16 in, at most {worst:.4f} of the tolerance 1e-5 + 1e-5 * "
-          "sum of e^2 per row; bitwise equal across launches)")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    emb = torch.randn(4099, 40, 24, generator=gen, device=dev)[:, 1:, ::2]
+    got = _one_launch("fm_interaction", ops.fm_interaction, emb)
+    ratio = tp.fm_error_ratio(got, fm_interaction_ref(emb.contiguous()), emb)
+    if emb.is_contiguous() or not ratio <= 1:
+        raise AssertionError(f"(i) fm_interaction on a strided view: "
+                             f"{ratio:.3f} of its tolerance")
+    print(f"(i) fm_interaction == plain on {n_cases} panels (float32, "
+          f"bfloat16 and float16 in, at most {worst:.4f} of the tolerance "
+          "1e-5 + 1e-5 * sum of e^2 per row; bitwise equal across launches); "
+          f"a strided view at {ratio:.4f}")
 
 
 def phase_fm_serving(tp, dev):
@@ -1034,6 +1327,18 @@ def phase_flash_vs_plain(tp, dev):
                                          "tolerance, or a masked row not 0")
                 worst[dtype] = max(worst.get(dtype, 0.0), ratio)
                 n_cases += 1
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn(2, 300, 4, 128, generator=gen, device=dev)
+               .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+    got = _one_launch("flash_attention", ops.flash_attention, q, k, v, True,
+                      16)
+    ratio = tp.flash_error_ratio(got, flash_attention_ref(
+        q.contiguous(), k.contiguous(), v.contiguous(), True, 16))
+    if q.is_contiguous() or not ratio <= 1:
+        raise AssertionError(f"(k) flash_attention on strided views: "
+                             f"{ratio:.3f} of its tolerance")
+    print(f"(k) flash_attention on strided (transposed) bfloat16 views: "
+          f"{ratio:.4f} of the tolerance")
     print(f"(k) flash_attention == plain on {n_cases} cases (groups 1 and 4, "
           "D in {8, 36, 64, 128, 256}, causal and not, windows 0/16/512, "
           "offsets, ragged tiles, rows that see no key = 0): worst "
@@ -1265,7 +1570,8 @@ def phase_gemma(tp, dev):
     }
 
 
-PHASES = ("a", "b", "b2", "b3", "c", "d", "e", "g", "h", "i", "j", "k", "l")
+PHASES = ("a", "b", "b2", "b3", "c", "d", "n", "e", "g", "h", "m", "i", "j",
+          "k", "l")
 
 
 def main(argv=None) -> int:
@@ -1307,7 +1613,8 @@ def main(argv=None) -> int:
                           ("b2", phase_segment_vs_plain, (tp, dev)),
                           ("b3", phase_slot, (tp, dev)),
                           ("c", phase_golden, (tp, dev)),
-                          ("d", phase_card_vs_cpu, (tp,))):
+                          ("d", phase_card_vs_cpu, (tp,)),
+                          ("n", phase_fleet_small, (tp,))):
         if tag in run:
             timed(tag, phase, *a)
     if "e" in run:
@@ -1319,6 +1626,12 @@ def main(argv=None) -> int:
         del g, res_ell
     if "h" in run:
         timed("h", phase_powerlaw, tp)
+    if "m" in run:
+        fleet = timed("m", phase_fleet_full_width, tp, dev)
+        if "e" in run:
+            jet_gain["fleet"] = fleet
+        else:
+            entries.append({"name": "jet_gain", "fleet": fleet})
     if "i" in run:
         timed("i", phase_fm_vs_plain, tp, dev)
     if "j" in run:

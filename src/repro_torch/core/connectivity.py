@@ -12,8 +12,11 @@ Counterpart of ``repro.core.connectivity``, with its three backends:
   jet_gain kernel (``kernels/jet_gain``).
 
 Everything here is trial-batched: ``parts`` is (T, N) and every per-trial
-quantity carries the leading T axis.  The graph and the ELL adjacency
-(``ell_nbr``/``ell_wgt``) are shared by all trials and stay unbatched.
+quantity carries the T axis.  The graph and the ELL adjacency
+(``ell_nbr``/``ell_wgt``) are shared by all trials and stay unbatched.  On
+a fleet bucket (DESIGN.md §10) the graph and the ELL adjacency carry a
+leading lane axis B, stored once per lane, and per-trial state is
+(B, T, ...); every sort, scan and scatter runs along the last axis.
 :class:`ConnState` is built once per level (:func:`build_state`), advanced
 after each move list with Alg 4.4 deltas (:func:`apply_moves`), and rebuilt
 from scratch only on the ``rebuild_every`` escape hatch
@@ -27,7 +30,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import metrics
-from repro_torch.core.graph import Graph
+from repro_torch.core.graph import Graph, take, trial_axis
 from repro_torch.core.u32 import MASK, u32
 from repro_torch.kernels.jet_gain import ops as jg
 from repro_torch.kernels.segment_reduce import ops as sr
@@ -41,7 +44,7 @@ def _check_backend(backend: str) -> None:
 
 
 class ConnQueries(NamedTuple):
-    """Per-vertex connectivity answers, all shape (T, N)."""
+    """Per-vertex connectivity answers, all shape (*lanes, T, N)."""
 
     conn_self: torch.Tensor   # conn(v, P_s(v))
     best_part: torch.Tensor   # argmax_{p != P_s(v)} conn(v, p); == k if none
@@ -53,20 +56,22 @@ class ConnQueries(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def conn_matrix(g: Graph, parts: torch.Tensor, k: int) -> torch.Tensor:
-    """(T, N, k+1) connectivity matrix via scatter-add over directed edges.
+    """(*lanes, T, N, k+1) connectivity matrix via scatter-add over directed
+    edges.
 
     Column k is the ghost part; padding edges carry weight 0 so they add
     nothing wherever they land.  A part id outside [0, k] adds nothing, as
     the reference's scatter drops it.
     """
-    t = parts.shape[0]
-    dst_part = parts[:, g.adjncy].long()
+    nd = parts.dim()
+    dst_part = take(parts, g.adjncy).long()
     ok = (dst_part >= 0) & (dst_part <= k)
-    flat = g.esrc.long() * (k + 1) + torch.where(ok, dst_part, 0)   # (T, M)
-    mat = torch.zeros(t, g.n_max * (k + 1), dtype=torch.int32,
-                      device=parts.device)
-    mat.scatter_add_(1, flat, torch.where(ok, g.adjwgt, 0))
-    return mat.view(t, g.n_max, k + 1)
+    flat = trial_axis(g.esrc, nd).long() * (k + 1) + \
+        torch.where(ok, dst_part, 0)                       # (..., T, M)
+    mat = torch.zeros((*parts.shape[:-1], g.n_max * (k + 1)),
+                      dtype=torch.int32, device=parts.device)
+    mat.scatter_add_(-1, flat, torch.where(ok, trial_axis(g.adjwgt, nd), 0))
+    return mat.view(*parts.shape[:-1], g.n_max, k + 1)
 
 
 def queries_from_matrix(mat: torch.Tensor, parts: torch.Tensor,
@@ -93,49 +98,59 @@ def dense_queries(g: Graph, parts: torch.Tensor, k: int) -> ConnQueries:
 _INVALID = MASK  # uint32 0xFFFFFFFF: the key of a padding edge
 
 
-def check_sorted(g: Graph, k: int, t: int) -> None:
-    """Refuse shapes at which the sorted backend's ids would overflow.
+def check_sorted(g: Graph, k: int) -> None:
+    """Refuse shapes at which the sorted backend's keys would wrap.
 
     The reference forms ``esrc*(k+1) + part`` in uint32: past
     ``n_max*(k+1) = 2^32 - 1`` keys wrap, runs of different vertices merge
-    and its connectivity is silently wrong.  The T trials' segment ids are
-    offset by ``t * num_segments`` in int32.
+    and its connectivity is silently wrong.  Keys are per lane (lane-local
+    vertex ids), so the bound is one lane's capacity, whatever the lanes.
     """
     if g.n_max * (k + 1) > MASK:
         raise ValueError(
             f"sorted backend: n_max*(k+1) = {g.n_max}*{k + 1} exceeds "
             f"2^32-1, so its uint32 (vertex, part) keys would wrap")
-    if t * max(g.m_max, g.n_max + 1) >= 2**31:
-        raise ValueError(
-            f"sorted backend: {t} trials x {max(g.m_max, g.n_max + 1)} "
-            "segments overflow its int32 segment ids")
+
+
+MAX_IDS = 2**31 - 1  # the segment ids of one segment_reduce launch are int32
 
 
 def _segment_sum(data: torch.Tensor, seg: torch.Tensor,
                  num_segments: int) -> torch.Tensor:
-    """Per-trial sorted-segment sum of (T, M) int32 ``data`` by (T, M) ids
-    in [0, num_segments) that do not decrease along each row.  One kernel
-    launch for all trials: trial t's ids are offset by ``t * num_segments``,
-    so the flattened ids still do not decrease.  Returns (T, num_segments).
+    """Per-row sorted-segment sum of (..., M) int32 ``data`` by (..., M) ids
+    in [0, num_segments) that do not decrease along each row.  Row r's ids
+    are offset by ``r * num_segments``, so the flattened ids still do not
+    decrease and one kernel launch takes every row; where R rows (lanes x
+    trials) would offset past the int32 ids' range, one launch per chunk of
+    rows that fits.  Returns (..., num_segments).
     """
-    t = data.shape[0]
-    off = torch.arange(t, device=seg.device)[:, None] * num_segments
-    ids = (seg.long() + off).int().reshape(-1)
-    out = sr.segment_sum_sorted(data.reshape(-1, 1), ids, t * num_segments)
-    return out.view(t, num_segments)
+    lead = data.shape[:-1]
+    data, seg = data.reshape(-1, data.shape[-1]), seg.reshape(-1, seg.shape[-1])
+    rows = max(1, MAX_IDS // max(num_segments, 1))
+    out = []
+    for r0 in range(0, data.shape[0], rows):
+        d, sg = data[r0: r0 + rows], seg[r0: r0 + rows]
+        off = torch.arange(d.shape[0], device=sg.device)[:, None] * num_segments
+        ids = (sg.long() + off).int().reshape(-1)
+        out.append(sr.segment_sum_sorted(d.reshape(-1, 1), ids,
+                                         d.shape[0] * num_segments))
+    out = out[0] if len(out) == 1 else torch.cat(out)
+    return out.view(*lead, num_segments)
 
 
 def sorted_edge_keys(g: Graph, dst_part: torch.Tensor, k: int):
-    """Each trial's (src, dst_part) edge keys, sorted: ``(skey, sw,
-    run_id)``, each (T, M) — the sorted uint32 keys (in int64), the edge
-    weights in that order, and each position's run of equal keys."""
-    check_sorted(g, k, dst_part.shape[0])
-    key = (u32(g.esrc) * (k + 1) + dst_part.long()) & MASK
-    key = torch.where(g.edge_mask(), key, _INVALID)
+    """Each row's (src, dst_part) edge keys, sorted: ``(skey, sw, run_id)``,
+    each (..., T, M) — the sorted uint32 keys (in int64), the edge weights
+    in that order, and each position's run of equal keys."""
+    check_sorted(g, k)
+    nd = dst_part.dim()
+    key = (u32(trial_axis(g.esrc, nd)) * (k + 1) + dst_part.long()) & MASK
+    key = torch.where(trial_axis(g.edge_mask(), nd), key, _INVALID)
     skey, order = torch.sort(key, dim=-1, stable=True)
     first = torch.ones_like(skey, dtype=torch.bool)
-    first[:, 1:] = skey[:, 1:] != skey[:, :-1]
-    return skey, g.adjwgt[order], torch.cumsum(first, -1) - 1
+    first[..., 1:] = skey[..., 1:] != skey[..., :-1]
+    sw = trial_axis(g.adjwgt, nd).expand(order.shape).gather(-1, order)
+    return skey, sw, torch.cumsum(first, -1) - 1
 
 
 def runs_from_dst_part(g: Graph, dst_part: torch.Tensor, k: int):
@@ -143,13 +158,13 @@ def runs_from_dst_part(g: Graph, dst_part: torch.Tensor, k: int):
 
     ``dst_part`` is the per-edge destination part (T, M) — either gathered
     from a parts batch or maintained incrementally in a :class:`ConnState`.
-    Returns ``(run_vertex, run_part, run_conn, run_valid)``, each (T, M).
+    Returns ``(run_vertex, run_part, run_conn, run_valid)``, each (..., T, M).
     Invalid runs have ``run_vertex == g.n_max`` (ghost segment).
     """
     skey, sw, run_id = sorted_edge_keys(g, dst_part, k)
     run_conn = _segment_sum(sw, run_id, g.m_max)
     # every key of a run is the same, so the scatter is order-free
-    run_key = torch.full_like(skey, _INVALID).scatter_(1, run_id, skey)
+    run_key = torch.full_like(skey, _INVALID).scatter_(-1, run_id, skey)
     valid = run_key != _INVALID
     run_vertex = torch.where(valid, run_key // (k + 1), g.n_max).int()
     run_part = (run_key % (k + 1)).int()
@@ -158,15 +173,15 @@ def runs_from_dst_part(g: Graph, dst_part: torch.Tensor, k: int):
 
 def sorted_runs(g: Graph, parts: torch.Tensor, k: int):
     """Runs built from scratch: gather each edge's destination part."""
-    return runs_from_dst_part(g, parts[:, g.adjncy], k)
+    return runs_from_dst_part(g, take(parts, g.adjncy), k)
 
 
 def _seg_max(values: torch.Tensor, seg: torch.Tensor, n_seg: int):
-    """(T, n_seg) segment max; an empty segment holds INT32_MIN, the
+    """(..., n_seg) segment max; an empty segment holds INT32_MIN, the
     reference's identity."""
-    out = torch.full((values.shape[0], n_seg), -2**31, dtype=torch.int32,
+    out = torch.full((*values.shape[:-1], n_seg), -2**31, dtype=torch.int32,
                      device=values.device)
-    return out.scatter_reduce_(1, seg.long(), values, "amax")
+    return out.scatter_reduce_(-1, seg.long(), values, "amax")
 
 
 def _seg_argmax_part(values, part_ids, seg, mask, n_seg: int, k: int):
@@ -174,7 +189,7 @@ def _seg_argmax_part(values, part_ids, seg, mask, n_seg: int, k: int):
     vals = torch.where(mask, values, 0)
     best = _seg_max(vals, seg, n_seg).clamp(min=0)
     seg_c = seg.clamp(0, n_seg - 1).long()
-    is_best = mask & (values == best.gather(1, seg_c)) & (values > 0)
+    is_best = mask & (values == best.gather(-1, seg_c)) & (values > 0)
     cand = torch.where(is_best, part_ids, k)  # k sorts after all real parts
     part = -_seg_max(torch.where(is_best, -cand, -k), seg, n_seg)
     none = best <= 0
@@ -186,14 +201,14 @@ def queries_from_runs(g: Graph, runs, parts: torch.Tensor,
     run_vertex, run_part, run_conn, valid = runs
     n_seg = g.n_max + 1
     vclip = run_vertex.clamp(0, g.n_max - 1).long()
-    own = valid & (run_part == parts.gather(1, vclip))
+    own = valid & (run_part == parts.gather(-1, vclip))
     conn_self = _segment_sum(torch.where(own, run_conn, 0), run_vertex,
-                             n_seg)[:, :g.n_max]
+                             n_seg)[..., :g.n_max]
     alt = valid & ~own
     best_conn, best_part = _seg_argmax_part(run_conn, run_part, run_vertex,
                                             alt, n_seg, k)
-    return ConnQueries(conn_self, best_part[:, :g.n_max],
-                       best_conn[:, :g.n_max])
+    return ConnQueries(conn_self, best_part[..., :g.n_max],
+                       best_conn[..., :g.n_max])
 
 
 def sorted_queries(g: Graph, parts: torch.Tensor, k: int) -> ConnQueries:
@@ -232,14 +247,14 @@ def update_conn_matrix(mat: torch.Tensor, g: Graph, parts_old: torch.Tensor,
     cumsum (integer adds commute, no value overflows).  Parts outside
     [0, k] match no column there, so they move no weight here.
     """
-    t = mat.shape[0]
-    w = torch.where(move[:, g.adjncy], g.adjwgt, 0)
-    row = g.esrc.long() * (k + 1)
-    out = mat.reshape(t, -1).clone()
-    for p, sign in ((parts_old[:, g.adjncy].long(), -1),
-                    (dest[:, g.adjncy].long(), 1)):
+    nd = move.dim()
+    w = torch.where(take(move, g.adjncy), trial_axis(g.adjwgt, nd), 0)
+    row = trial_axis(g.esrc, nd).long() * (k + 1)
+    out = mat.reshape(*mat.shape[:-2], -1).clone()
+    for p, sign in ((take(parts_old, g.adjncy).long(), -1),
+                    (take(dest, g.adjncy).long(), 1)):
         ok = (p >= 0) & (p <= k)
-        out.scatter_add_(1, row + torch.where(ok, p, 0),
+        out.scatter_add_(-1, row + torch.where(ok, p, 0),
                          torch.where(ok, sign * w, 0))
     return out.view_as(mat)
 
@@ -256,19 +271,24 @@ class ConnState(NamedTuple):
     one-pass edge reduction over the post-move parts.
     """
 
-    sizes: torch.Tensor          # (T, k) int32 part weights
-    cut: torch.Tensor            # (T,) int32 current cutsize
-    mat: torch.Tensor            # dense: (T, N, k+1) int32; else empty
-    edge_dst_part: torch.Tensor  # sorted: (T, M) int32 edge dst parts; else empty
-    ell_nbr: torch.Tensor        # ell: (N, D) int32 neighbor ids; else empty
-    ell_wgt: torch.Tensor        # ell: (N, D) int32 edge weights; else empty
-    ell_parts: torch.Tensor      # ell: (T, N, D) int32 neighbor parts; else empty
-    moves_applied: torch.Tensor  # (T,) int32 move lists since last (re)build
+    sizes: torch.Tensor          # (..., T, k) int32 part weights
+    cut: torch.Tensor            # (..., T) int32 current cutsize
+    mat: torch.Tensor            # dense: (..., T, N, k+1) int32; else empty
+    edge_dst_part: torch.Tensor  # sorted: (..., T, M) int32 edge dst parts
+    ell_nbr: torch.Tensor        # ell: (..., N, D) int32 neighbor ids (shared)
+    ell_wgt: torch.Tensor        # ell: (..., N, D) int32 edge weights (shared)
+    ell_parts: torch.Tensor      # ell: (..., T, N, D) int32 neighbor parts
+    moves_applied: torch.Tensor  # (..., T) int32 move lists since last (re)build
+
+
+# ConnState fields that the trials of a lane share (not per-row state)
+SHARED_FIELDS = frozenset({"ell_nbr", "ell_wgt"})
 
 
 def _edge_dst_part(g: Graph, parts: torch.Tensor, k: int) -> torch.Tensor:
-    """(T, M) destination part of every edge; padding edges hold k."""
-    return torch.where(g.edge_mask(), parts[:, g.adjncy], k).int()
+    """(..., T, M) destination part of every edge; padding edges hold k."""
+    return torch.where(trial_axis(g.edge_mask(), parts.dim()),
+                       take(parts, g.adjncy), k).int()
 
 
 def build_state(g: Graph, parts: torch.Tensor, k: int, backend: str = "dense",
@@ -292,7 +312,7 @@ def build_state(g: Graph, parts: torch.Tensor, k: int, backend: str = "dense",
         cut=metrics.cutsize(g, parts),
         mat=mat, edge_dst_part=edp, ell_nbr=nbr, ell_wgt=wgt,
         ell_parts=nparts,
-        moves_applied=torch.zeros(parts.shape[0], dtype=torch.int32,
+        moves_applied=torch.zeros(parts.shape[:-1], dtype=torch.int32,
                                   device=parts.device),
     )
 
@@ -332,8 +352,8 @@ def apply_moves(g: Graph, state: ConnState, parts_old: torch.Tensor,
     if backend == "dense":
         upd["mat"] = update_conn_matrix(state.mat, g, parts_old, move, dest, k)
     elif backend == "sorted":
-        hit = g.edge_mask() & move[:, g.adjncy]
-        upd["edge_dst_part"] = torch.where(hit, dest[:, g.adjncy],
+        hit = trial_axis(g.edge_mask(), move.dim()) & take(move, g.adjncy)
+        upd["edge_dst_part"] = torch.where(hit, take(dest, g.adjncy),
                                            state.edge_dst_part).int()
     else:
         upd["ell_parts"] = jg.update_nbr_parts(state.ell_nbr, state.ell_parts,
@@ -357,13 +377,13 @@ def state_queries(g: Graph, state: ConnState, parts: torch.Tensor, k: int,
 # -- valid-destination queries (Jetrw / Jetrs) from the maintained state ----
 
 def _colmask(valid_parts: torch.Tensor) -> torch.Tensor:
-    """(T, 1, k+1) column mask: the valid parts, never the ghost column."""
-    pad = torch.zeros_like(valid_parts[:, :1])
-    return torch.cat([valid_parts, pad], 1).unsqueeze(1)
+    """(..., T, 1, k+1) column mask: the valid parts, never the ghost column."""
+    pad = torch.zeros_like(valid_parts[..., :1])
+    return torch.cat([valid_parts, pad], -1).unsqueeze(-2)
 
 
 def _state_matrix(state: ConnState, k: int, backend: str) -> torch.Tensor:
-    """A dense (T, N, k+1) view of the state for matrix-shaped queries.
+    """A dense (..., T, N, k+1) view of the state for matrix-shaped queries.
 
     ELL rebuilds it from the maintained neighbor parts — an O(T*N*D)
     scatter, used only on (rare) rebalance iterations.
@@ -376,8 +396,8 @@ def _state_matrix(state: ConnState, k: int, backend: str) -> torch.Tensor:
 def _run_mask(runs, valid_parts: torch.Tensor, k: int) -> torch.Tensor:
     """Valid runs whose part is a valid destination (never the ghost k)."""
     _, run_part, _, valid = runs
-    vp = torch.cat([valid_parts, torch.zeros_like(valid_parts[:, :1])], 1)
-    return valid & vp.gather(1, run_part.clamp(0, k).long())
+    vp = torch.cat([valid_parts, torch.zeros_like(valid_parts[..., :1])], -1)
+    return valid & vp.gather(-1, run_part.clamp(0, k).long())
 
 
 def _rw_from_runs(g: Graph, runs, valid_parts: torch.Tensor, k: int):
@@ -385,7 +405,7 @@ def _rw_from_runs(g: Graph, runs, valid_parts: torch.Tensor, k: int):
     best_conn, best_part = _seg_argmax_part(
         run_conn, run_part, run_vertex, _run_mask(runs, valid_parts, k),
         g.n_max + 1, k)
-    best_conn, best_part = best_conn[:, :g.n_max], best_part[:, :g.n_max]
+    best_conn, best_part = best_conn[..., :g.n_max], best_part[..., :g.n_max]
     has = best_conn > 0
     return best_conn.clamp(min=0), torch.where(has, best_part, k).int(), has
 
@@ -396,7 +416,7 @@ def _rs_from_runs(g: Graph, runs, valid_parts: torch.Tensor, k: int):
     n_seg = g.n_max + 1
     s = _segment_sum(torch.where(mask, run_conn, 0), run_vertex, n_seg)
     cnt = _segment_sum((mask & (run_conn > 0)).int(), run_vertex, n_seg)
-    return s[:, :g.n_max], cnt[:, :g.n_max]
+    return s[..., :g.n_max], cnt[..., :g.n_max]
 
 
 def rw_queries(g: Graph, state: ConnState, k: int, valid_parts: torch.Tensor,

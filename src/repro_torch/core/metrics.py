@@ -1,7 +1,8 @@
 """Partition quality metrics: cutsize, part sizes, imbalance.
 
 Counterpart of ``repro.core.metrics``.  ``parts`` may carry leading batch
-dimensions (a trial axis): every function reduces over the last axis only.
+dimensions (a lane axis, a trial axis): every function reduces over the
+last axis only, and a per-lane ``total_w`` lines up with the lane axis.
 ``size_limit`` and ``imbalance`` stay float32, in the reference's order of
 operations.
 """
@@ -9,28 +10,25 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.graph import Graph
-
-
-def _rows(parts: torch.Tensor) -> torch.Tensor:
-    return parts.reshape(-1, parts.shape[-1])
+from repro_torch.core.graph import Graph, take, trial_axis
 
 
 def cutsize(g: Graph, parts: torch.Tensor) -> torch.Tensor:
-    """Sum of weights of cut (undirected) edges. parts: (..., N) in [0, k]."""
-    cut = torch.where(parts[..., g.esrc] != parts[..., g.adjncy], g.adjwgt, 0)
+    """Sum of weights of cut (undirected) edges. parts: (*lanes, [T,] N)."""
+    cut = torch.where(take(parts, g.esrc) != take(parts, g.adjncy),
+                      trial_axis(g.adjwgt, parts.dim()), 0)
     return cut.sum(-1, dtype=torch.int32) // 2
 
 
 def _weight_by_part(parts: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
-    """(..., k+1) sums of ``w`` (..., N) by part id; ids outside [0, k] are
-    dropped, as the reference's segment sum drops them."""
-    p = _rows(parts).long()
+    """(..., k+1) sums of ``w`` by part id along the last axis; ids outside
+    [0, k] are dropped, as the reference's segment sum drops them."""
+    p = parts.long()
     ok = (p >= 0) & (p <= k)
-    out = torch.zeros(p.shape[0], k + 1, dtype=torch.int32, device=p.device)
-    out.scatter_add_(1, torch.where(ok, p, 0),
-                     torch.where(ok, _rows(w.expand(parts.shape)).int(), 0))
-    return out.reshape(*parts.shape[:-1], k + 1)
+    w = trial_axis(w, p.dim()).expand(p.shape).int()
+    out = torch.zeros((*p.shape[:-1], k + 1), dtype=torch.int32,
+                      device=p.device)
+    return out.scatter_add_(-1, torch.where(ok, p, 0), torch.where(ok, w, 0))
 
 
 def part_sizes(g: Graph, parts: torch.Tensor, k: int) -> torch.Tensor:
@@ -44,7 +42,7 @@ def delta_part_sizes(g: Graph, sizes, parts_old, move, dest, k: int):
     Integer scatter-adds of the movers' weights, bit-identical to the
     reference's one-hot delta reduction (integer adds commute).
     """
-    w = torch.where(move, g.vwgt, 0)
+    w = torch.where(move, trial_axis(g.vwgt, move.dim()), 0)
     parts_new = torch.where(move, dest, parts_old)
     d = _weight_by_part(parts_new, w, k) - _weight_by_part(parts_old, w, k)
     return sizes + d[..., :k]

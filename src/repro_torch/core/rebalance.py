@@ -1,7 +1,8 @@
 """Jetr rebalancing — weak (Alg 4.3) and strong variants, slot bucketing (Eq 4.5).
 
 Counterpart of ``repro.core.rebalance``, trial-batched: ``parts`` is (T, N)
-and the connectivity state carries the T axis.  The same partial order as
+(or (B, T, N) on a fleet bucket) and the connectivity state carries the
+same leading axes; each lane's limits come from its own total weight.  The same partial order as
 the paper's bucket insertion comes from a stable sort on (part, slot) keys;
 eviction prefixes come from a segmented cumulative sum.
 """
@@ -13,7 +14,7 @@ import torch
 
 from repro_torch.core import connectivity as cn
 from repro_torch.core import metrics
-from repro_torch.core.graph import Graph
+from repro_torch.core.graph import Graph, trial_axis
 from repro_torch.core.u32 import mul32
 
 NSLOT = 36  # slot(x) in [0, 2+floor(log2(2^31))] = [0, 33]
@@ -75,54 +76,58 @@ def _dest_caps(sizes, limit, total_w, k: int):
 
 
 def _rank_to_part(valid_parts: torch.Tensor, k: int):
-    """part_of_rank[t, r] = r-th valid part id of trial t; num_valid (T,)."""
+    """part_of_rank[..., t, r] = r-th valid part id of trial t; num_valid
+    (..., T)."""
     v = valid_parts.int()
-    rank = torch.cumsum(v, 1).int() - 1
+    rank = torch.cumsum(v, -1).int() - 1
     ids = torch.arange(k, dtype=torch.int32, device=v.device).expand_as(v)
     part_of_rank = torch.zeros_like(v).scatter_reduce_(
-        1, torch.where(valid_parts, rank, k - 1).long(),
+        -1, torch.where(valid_parts, rank, k - 1).long(),
         torch.where(valid_parts, ids, 0), "amax")
-    return part_of_rank, v.sum(1, dtype=torch.int32)
+    return part_of_rank, v.sum(-1, dtype=torch.int32)
 
 
 def _evict_prefix(g: Graph, parts, k, movable, slots, sizes, limit):
     """Stable sort by (part, slot); pick per-part prefixes with weight just
     covering size - limit (Alg 4.3 lines 19-28, Eq 4.4).
 
-    Returns (evict (T,N) bool, order (T,N), evict_s, ecum_before (T,N)
+    Returns (evict (..., T, N) bool, order, evict_s, ecum_before: the
     cumulative evicted weight in sorted space, for the cookie-cutter).
     """
     key = torch.where(movable, parts * NSLOT + slots, _INF)
-    order = torch.argsort(key, dim=1, stable=True)
-    mov_s = movable.gather(1, order)
-    seg = torch.where(mov_s, parts.gather(1, order), k).long()
-    w_s = torch.where(mov_s, g.vwgt[order], 0)
-    cum_before = torch.cumsum(w_s, 1).int() - w_s
+    order = torch.argsort(key, dim=-1, stable=True)
+    mov_s = movable.gather(-1, order)
+    seg = torch.where(mov_s, parts.gather(-1, order), k).long()
+    vw = trial_axis(g.vwgt, order.dim()).expand(order.shape)
+    w_s = torch.where(mov_s, vw.gather(-1, order), 0)
+    cum_before = torch.cumsum(w_s, -1).int() - w_s
     first = torch.ones_like(mov_s)
-    first[:, 1:] = seg[:, 1:] != seg[:, :-1]
-    part_off = torch.zeros(parts.shape[0], k + 1, dtype=torch.int32,
+    first[..., 1:] = seg[..., 1:] != seg[..., :-1]
+    part_off = torch.zeros((*parts.shape[:-1], k + 1), dtype=torch.int32,
                            device=parts.device).scatter_reduce_(
-        1, seg, torch.where(first, cum_before, 0), "amax")
-    within_before = cum_before - part_off.gather(1, seg)
+        -1, seg, torch.where(first, cum_before, 0), "amax")
+    within_before = cum_before - part_off.gather(-1, seg)
     need = torch.clamp(sizes - limit, min=0)
-    need_s = need.gather(1, seg.clamp(0, k - 1))
+    need_s = need.gather(-1, seg.clamp(0, k - 1))
     evict_s = mov_s & (within_before < need_s)
-    evict = torch.zeros_like(evict_s).scatter_(1, order, evict_s)
+    evict = torch.zeros_like(evict_s).scatter_(-1, order, evict_s)
     ew = torch.where(evict_s, w_s, 0)
-    ecum_before = torch.cumsum(ew, 1).int() - ew
+    ecum_before = torch.cumsum(ew, -1).int() - ew
     return evict, order, evict_s, ecum_before
 
 
 def _common(g: Graph, conn: cn.ConnState, parts, k, lam):
     sizes = conn.sizes
-    W = g.total_vweight()
+    nd = parts.dim()
+    W = g.total_vweight()[..., None, None]  # per lane, against (..., T, k)
     limit = metrics.size_limit(W, k, lam)
     over, valid, sigma, opt = _dest_caps(sizes, limit, W, k)
     pclip = parts.clamp(0, k - 1).long()
-    in_over = over.gather(1, pclip) & g.vertex_mask() & (parts < k)
+    in_over = over.gather(-1, pclip) & trial_axis(g.vertex_mask(), nd) & \
+        (parts < k)
     # weight restriction (paper end of §4.2.2)
-    surplus = (sizes.gather(1, pclip) - opt).float()
-    movable = in_over & (g.vwgt.float() <= 1.5 * surplus)
+    surplus = (sizes.gather(-1, pclip) - opt).float()
+    movable = in_over & (trial_axis(g.vwgt, nd).float() <= 1.5 * surplus)
     return sizes, limit, over, valid, sigma, opt, movable
 
 
@@ -146,12 +151,13 @@ def jetrw_moves(g: Graph, parts, k: int, lam: float, backend: str = "dense",
     part_of_rank, num_valid = _rank_to_part(valid, k)
     vid = torch.arange(g.n_max, device=parts.device)
     r = (mul32(vid, 2654435761) >> 8).int()
-    r = r % torch.clamp(num_valid, min=1)[:, None]
-    rand_part = part_of_rank.gather(1, r.clamp(0, k - 1).long())
+    r = r % torch.clamp(num_valid, min=1)[..., None]
+    rand_part = part_of_rank.gather(
+        -1, r.clamp(0, k - 1).long().expand(*parts.shape[:-1], -1))
     # last resort (no valid part at all): smallest part
-    argmin_part = torch.argmin(sizes, dim=1).int()[:, None]
+    argmin_part = torch.argmin(sizes, dim=-1).int()[..., None]
     dest = torch.where(has, best_part,
-                       torch.where(num_valid[:, None] > 0, rand_part,
+                       torch.where(num_valid[..., None] > 0, rand_part,
                                    argmin_part))
     loss = q.conn_self - best_conn
     evict, _, _, _ = _evict_prefix(g, parts, k, movable, slot(loss), sizes,
@@ -172,12 +178,12 @@ def jetrs_moves(g: Graph, parts, k: int, lam: float, backend: str = "dense",
                                                  slot(loss), sizes, limit)
     # capacities of valid destinations up to sigma
     cap = torch.where(valid, torch.clamp(sigma - sizes, min=0), 0)
-    ccap = torch.cumsum(cap, 1).int()
-    total_cap = ccap[:, -1:]
+    ccap = torch.cumsum(cap, -1).int()
+    total_cap = ccap[..., -1:]
     x = torch.minimum(ecum_before, torch.clamp(total_cap - 1, min=0))
     dest_s = torch.searchsorted(ccap, x, right=True).clamp(0, k - 1).int()
     # safety: if total capacity is zero, send to smallest part
-    argmin_part = torch.argmin(sizes, dim=1).int()[:, None]
+    argmin_part = torch.argmin(sizes, dim=-1).int()[..., None]
     dest_s = torch.where(total_cap > 0, dest_s, argmin_part)
-    dest = torch.zeros_like(dest_s).scatter_(1, order, dest_s)
+    dest = torch.zeros_like(dest_s).scatter_(-1, order, dest_s)
     return evict, dest

@@ -1,13 +1,15 @@
 """Jet refinement — Jetlp (Alg 4.2) and the outer driver (Alg 4.1).
 
-Counterpart of ``repro.core.refine``, trial-batched: ``parts`` is (T, N).
-The reference runs one ``lax.while_loop`` per level under ``jax.vmap`` over
-the trials; here that is a Python loop which runs while any trial is still
-active, computing the body for all trials and freezing every carry field of
-a finished trial with ``torch.where`` — so trial t walks the trajectory of
-its T=1 run (DESIGN.md §9).  Each ``lax.cond`` under vmap becomes a select:
-a branch is computed only if some active trial takes it, then chosen per
-trial.  One small host read per iteration decides the loop and the branches.
+Counterpart of ``repro.core.refine``, trial-batched: ``parts`` is (T, N),
+or (B, T, N) over the lanes of a fleet bucket.  The reference runs one
+``lax.while_loop`` per level under ``jax.vmap`` over the trials (and the
+lanes); here that is a Python loop which runs while any row is still
+active, computing the body for all rows and freezing every carry field of
+a finished row with ``torch.where`` — so trial t of lane b walks the
+trajectory of its standalone T=1 run (DESIGN.md §§9-10).  Each ``lax.cond``
+under vmap becomes a select: a branch is computed only if some active row
+takes it, then chosen per row.  One small host read per iteration, for the
+whole bucket, decides the loop and the branches.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 from repro_torch.core import connectivity as cn
 from repro_torch.core import metrics
 from repro_torch.core import rebalance as rb
-from repro_torch.core.graph import Graph
+from repro_torch.core.graph import Graph, take, trial_axis
 
 VARIANTS = ("baseline", "locks", "weak_ab", "full_ab", "full")
 
@@ -37,7 +39,7 @@ def variant_flags(variant: str):
 def jetlp_moves(g: Graph, parts, k: int, lock, c: float,
                 backend: str = "dense", variant: str = "full",
                 queries: cn.ConnQueries | None = None):
-    """One unconstrained LP pass (Alg 4.2). Returns (move_mask, dest), (T, N).
+    """One unconstrained LP pass (Alg 4.2). Returns (move_mask, dest), (..., T, N).
 
     First filter: Eq 4.3 ``-F(v) < floor(c * conn(v, P_s))  or  F(v) >= 0``.
     Second filter (afterburner): recompute the gain against the approximate
@@ -52,7 +54,8 @@ def jetlp_moves(g: Graph, parts, k: int, lock, c: float,
         filter1 = (F >= 0) | (-F < thr)  # Eq 4.3 (strict <, floor rounding)
     else:
         filter1 = F >= 0
-    X = g.vertex_mask() & boundary & filter1
+    nd = parts.dim()
+    X = trial_axis(g.vertex_mask(), nd) & boundary & filter1
     if use_locks:
         X = X & ~lock
     Pd = torch.where(X, q.best_part, parts)
@@ -60,45 +63,55 @@ def jetlp_moves(g: Graph, parts, k: int, lock, c: float,
         return X, Pd
 
     # Afterburner: per-edge approximate next state.
-    u, v, w = g.adjncy, g.esrc, g.adjwgt
-    Fu, Fv = F[:, u], F[:, v]
+    u, v, w = g.adjncy, g.esrc, trial_axis(g.adjwgt, nd)
+    Fu, Fv = take(F, u), take(F, v)
     # ord(u) < ord(v): u moves "first" iff higher priority gain, tie -> smaller id
-    u_first = X[:, u] & ((Fu > Fv) | ((Fu == Fv) & (u < v)))
-    pu = torch.where(u_first, Pd[:, u], parts[:, u])
-    contrib = w * ((pu == Pd[:, v]).int() - (pu == parts[:, v]).int())
-    contrib = torch.where(g.edge_mask() & X[:, v], contrib, 0)
-    F2 = torch.zeros_like(F).index_add_(1, v.long(), contrib)
+    u_first = take(X, u) & ((Fu > Fv) | ((Fu == Fv) & trial_axis(u < v, nd)))
+    pu = torch.where(u_first, take(Pd, u), take(parts, u))
+    contrib = w * ((pu == take(Pd, v)).int() - (pu == take(parts, v)).int())
+    contrib = torch.where(trial_axis(g.edge_mask(), nd) & take(X, v),
+                          contrib, 0)
+    vi = trial_axis(v.long(), nd).expand(contrib.shape)
+    F2 = torch.zeros_like(F).scatter_add_(-1, vi, contrib)
     return X & (F2 >= 0), Pd
 
 
 class RefineState(NamedTuple):
-    parts: torch.Tensor          # (T, N)
+    """The loop's carry: every field is per row, (..., T[, N])."""
+
+    parts: torch.Tensor          # (..., T, N)
     conn: cn.ConnState           # threaded connectivity/sizes/cut state
-    best_parts: torch.Tensor     # (T, N)
-    best_cost: torch.Tensor      # (T,) int32 cutsize of best
-    best_maxsize: torch.Tensor   # (T,) int32 max part weight of best
-    best_balanced: torch.Tensor  # (T,) bool
-    lock: torch.Tensor           # (T, N) bool — last Jetlp move set
-    since_best: torch.Tensor     # (T,) int32 iterations since best improved
-    weak_count: torch.Tensor     # (T,) int32 consecutive weak rebalances
-    it: torch.Tensor             # (T,) int32 total iterations
-    lp_iters: torch.Tensor       # (T,) int32 (stats)
-    rb_iters: torch.Tensor       # (T,) int32 (stats)
+    best_parts: torch.Tensor     # (..., T, N)
+    best_cost: torch.Tensor      # (..., T) int32 cutsize of best
+    best_maxsize: torch.Tensor   # (..., T) int32 max part weight of best
+    best_balanced: torch.Tensor  # (..., T) bool
+    lock: torch.Tensor           # (..., T, N) bool — last Jetlp move set
+    since_best: torch.Tensor     # (..., T) int32 iterations since best improved
+    weak_count: torch.Tensor     # (..., T) int32 consecutive weak rebalances
+    it: torch.Tensor             # (..., T) int32 total iterations
+    lp_iters: torch.Tensor       # (..., T) int32 (stats)
+    rb_iters: torch.Tensor       # (..., T) int32 (stats)
 
 
-def _select(take: torch.Tensor, new, old):
-    """Per-trial select over a tensor or a NamedTuple of tensors.
+def _select(pick: torch.Tensor, new, old):
+    """Per-row select, ``pick`` (..., T), over a per-row tensor, a tuple
+    of them, a :class:`RefineState` or a :class:`~repro_torch.core.
+    connectivity.ConnState`.
 
-    Tensors without the trial axis (the shared ELL adjacency, empty
-    placeholders) are the same in both and pass through.
+    Which tensors are per row is decided by name, never by shape: the
+    ConnState fields in ``cn.SHARED_FIELDS`` (the ELL adjacency, one per
+    lane) and empty placeholders are the same in both and pass through.
     """
     if isinstance(new, tuple):
-        vals = [_select(take, a, b) for a, b in zip(new, old)]
+        shared = cn.SHARED_FIELDS if isinstance(new, cn.ConnState) else ()
+        fields = getattr(new, "_fields", [None] * len(new))
+        vals = [a if f in shared else _select(pick, a, b)
+                for f, a, b in zip(fields, new, old)]
         return type(new)(*vals) if hasattr(new, "_fields") else tuple(vals)
-    if new is old or new.dim() == 0 or new.shape[0] != take.shape[0] \
-            or new.numel() == 0:
+    if new is old or new.numel() == 0:
         return new
-    return torch.where(take.view(-1, *([1] * (new.dim() - 1))), new, old)
+    return torch.where(
+        pick.view(*pick.shape, *[1] * (new.dim() - pick.dim())), new, old)
 
 
 def _cond(pred, need_true: bool, need_false: bool, if_true, if_false):
@@ -116,10 +129,12 @@ def jet_refine(g: Graph, parts0, k: int, lam: float = 0.03, c: float = 0.75,
                max_iter: int = 200, b_max: int = 2, variant: str = "full",
                rebuild_every: int = 0, conn0: cn.ConnState | None = None,
                max_degree: int | None = None):
-    """Alg 4.1 on a (T, N) batch of partitions. Returns (best_parts, stats)."""
+    """Alg 4.1 on a (..., T, N) batch of partitions. Returns (best_parts,
+    stats)."""
     if rebuild_every < 0:
         raise ValueError(f"rebuild_every must be >= 0, got {rebuild_every}")
-    parts0 = torch.where(g.vertex_mask(), parts0.int(), k)
+    parts0 = torch.where(trial_axis(g.vertex_mask(), parts0.dim()),
+                         parts0.int(), k)
     if conn0 is None:
         if backend == "ell" and max_degree is None:
             max_degree = int(g.degrees().max())
@@ -132,15 +147,24 @@ def jet_refine(g: Graph, parts0, k: int, lam: float = 0.03, c: float = 0.75,
 
 def _refine_loop(g: Graph, parts0, conn0: cn.ConnState, phi, *, k: int,
                  lam: float, c: float, backend: str, patience: int,
-                 max_iter: int, b_max: int, variant: str, rebuild_every: int):
+                 max_iter: int, b_max: int, variant: str, rebuild_every: int,
+                 active=None):
+    """Alg 4.1 over the rows (..., T) of ``parts0``.
+
+    ``active`` (a fleet lane's refine flag, (B,) bool) makes every row of
+    an inactive lane's loop condition false at iteration 0, so its
+    (identity-projected) partition passes through untouched.
+    """
     dev = parts0.device
-    t = parts0.shape[0]
-    limit = metrics.size_limit(g.total_vweight(), k, lam)
+    rows = parts0.shape[:-1]
+    # per lane, against the (..., T) rows
+    limit = metrics.size_limit(g.total_vweight(), k, lam).unsqueeze(-1)
+    lane_ok = True if active is None else active.unsqueeze(-1)
 
     def zeros():
-        return torch.zeros(t, dtype=torch.int32, device=dev)
+        return torch.zeros(rows, dtype=torch.int32, device=dev)
 
-    max0 = conn0.sizes.amax(1)
+    max0 = conn0.sizes.amax(-1)
     st = RefineState(
         parts=parts0, conn=conn0, best_parts=parts0, best_cost=conn0.cut,
         best_maxsize=max0, best_balanced=max0 <= limit,
@@ -148,11 +172,11 @@ def _refine_loop(g: Graph, parts0, conn0: cn.ConnState, phi, *, k: int,
         since_best=zeros(), weak_count=zeros(), it=zeros(),
         lp_iters=zeros(), rb_iters=zeros(),
     )
-    one = torch.ones(t, dtype=torch.int32, device=dev)
+    one = torch.ones(rows, dtype=torch.int32, device=dev)
 
     while True:
-        active = (st.since_best < patience) & (st.it < max_iter)
-        balanced = st.conn.sizes.amax(1) <= limit
+        active = (st.since_best < patience) & (st.it < max_iter) & lane_ok
+        balanced = st.conn.sizes.amax(-1) <= limit
         weak = st.weak_count < b_max
         any_act, any_lp, any_weak, any_strong = torch.stack([
             active.any(), (active & balanced).any(),
@@ -196,7 +220,7 @@ def _refine_loop(g: Graph, parts0, conn0: cn.ConnState, phi, *, k: int,
                 cn.apply_moves(g, st.conn, st.parts, move, dest, k, backend))
 
         cost2 = conn2.cut
-        max2 = conn2.sizes.amax(1)
+        max2 = conn2.sizes.amax(-1)
         bal2 = max2 <= limit
         # Best tracking (Alg 4.1 lines 16-23, with a balanced partition
         # always superseding an unbalanced best — DESIGN.md §6).
@@ -204,14 +228,14 @@ def _refine_loop(g: Graph, parts0, conn0: cn.ConnState, phi, *, k: int,
         significant = bal2 & (~st.best_balanced
                               | (cost2.float() < phi * st.best_cost.float()))
         take_imb = ~bal2 & ~st.best_balanced & (max2 < st.best_maxsize)
-        take = take_bal | take_imb
+        take_best = take_bal | take_imb
         reset = significant | take_imb
         new = RefineState(
             parts=parts2,
             conn=conn2,
-            best_parts=_select(take, parts2, st.best_parts),
-            best_cost=torch.where(take, cost2, st.best_cost),
-            best_maxsize=torch.where(take, max2, st.best_maxsize),
+            best_parts=_select(take_best, parts2, st.best_parts),
+            best_cost=torch.where(take_best, cost2, st.best_cost),
+            best_maxsize=torch.where(take_best, max2, st.best_maxsize),
             best_balanced=st.best_balanced | bal2,
             lock=lock2,
             since_best=torch.where(reset, 0, st.since_best + 1),

@@ -3,8 +3,9 @@
 Copies of ``repro.data.graphs``: the same numpy code, so the same arguments
 and seed give the same arrays.  2D/3D lattices (the paper's `grid`/`cube`),
 RMAT power-law graphs (social/web-like), Watts-Strogatz small-world rings,
-and random geometric graphs (finite-element-like).  Graphs are built on the
-CPU; move them with :meth:`Graph.to`.
+and random geometric graphs (finite-element-like), plus the reference's
+five-graph ``SUITE``.  Graphs are built on the CPU; move them with
+:meth:`Graph.to`.
 """
 from __future__ import annotations
 
@@ -110,3 +111,18 @@ def star(n: int, **kw) -> Graph:
 def complete(n: int, **kw) -> Graph:
     i, j = np.triu_indices(n, 1)
     return build_csr_host(n, np.stack([i, j], 1), **kw)
+
+
+SUITE = {
+    # name: (factory, kwargs, paper class) — the reference's suite
+    "grid_64x32": (grid2d, dict(rows=64, cols=32), "artificial mesh (2D)"),
+    "cube_12": (grid3d, dict(nx=12, ny=12, nz=12), "artificial mesh (3D)"),
+    "rmat_12": (rmat, dict(scale=12, edge_factor=8), "social/web"),
+    "smallworld_4k": (small_world, dict(n=4096, k_ring=6), "complex network"),
+    "geo_4k": (random_geometric, dict(n=4096), "finite element"),
+}
+
+
+def suite_graph(name: str) -> Graph:
+    fac, kw, _ = SUITE[name]
+    return fac(**kw)

@@ -49,9 +49,9 @@ def _check(q, k, v) -> None:
 
 
 def _flash_attention_cuda(q, k, v, causal: bool, window: int, q_offset: int):
-    """Launch ``flash_attention.cu`` on the current stream."""
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention needs contiguous q, k and v")
+    """Launch ``flash_attention.cu`` on the current stream (strided views
+    are copied to contiguous first)."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     fn, max_d = _library()
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel src/repro/kernels/fm_interaction/fm_interaction.py:
 // _kernel (pallas_call in fm_interaction_pallas).  For embeddings e (B, F, D),
-// float32 or bfloat16:
+// float32, bfloat16 or float16 (cast to float32 on load):
 //   out[b] = 0.5 * sum_d [ (sum_f e[b,f,d])^2 - sum_f e[b,f,d]^2 ]
 // in float32.  The sum-square trick cancels, so s and sq are float32 and are
 // subtracted per d before the sum over d, as the reference does.
@@ -23,6 +23,7 @@
 // field's load reuses those cache lines from L1, so each input byte comes
 // from device memory about once.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -33,6 +34,9 @@ constexpr int kMaxDim = 12288;  // ex * D partials stay within 48 KB
 __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
+}
+__device__ __forceinline__ float load(const __half* p) {
+  return __half2float(*p);
 }
 
 template <typename T>
@@ -70,11 +74,17 @@ fm_kernel(const T* __restrict__ emb, float* __restrict__ out, long long b,
 
 extern "C" int fm_interaction_max_dim() { return kMaxDim; }
 
-// emb (b, f, d) contiguous, float32 (is_bf16 = 0) or bfloat16; out (b,)
-// float32.  Returns the CUDA error of the launch (0 on success).
+template <typename T>
+void launch(const void* emb, void* out, long long b, int f, int d, int ex,
+            long long blocks, size_t smem, cudaStream_t s) {
+  fm_kernel<T><<<(unsigned)blocks, kThreads, smem, s>>>(
+      static_cast<const T*>(emb), static_cast<float*>(out), b, f, d, ex);
+}
+
+// emb (b, f, d) contiguous, float32 (dtype 0), bfloat16 (1) or float16 (2);
+// out (b,) float32.  Returns the CUDA error of the launch (0 on success).
 extern "C" int fm_interaction_launch(const void* emb, void* out, long long b,
-                                     int f, int d, int is_bf16,
-                                     void* stream) {
+                                     int f, int d, int dtype, void* stream) {
   if (b <= 0) return 0;
   if (d < 1 || d > kMaxDim || f < 0) return (int)cudaErrorInvalidValue;
   const int ex = d >= kThreads ? 1 : kThreads / d;
@@ -82,14 +92,12 @@ extern "C" int fm_interaction_launch(const void* emb, void* out, long long b,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)ex * d * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    fm_kernel<__nv_bfloat16><<<(unsigned)blocks, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(emb), static_cast<float*>(out), b,
-        f, d, ex);
-  } else {
-    fm_kernel<float><<<(unsigned)blocks, kThreads, smem, s>>>(
-        static_cast<const float*>(emb), static_cast<float*>(out), b, f, d,
-        ex);
+  switch (dtype) {
+    case 0: launch<float>(emb, out, b, f, d, ex, blocks, smem, s); break;
+    case 1: launch<__nv_bfloat16>(emb, out, b, f, d, ex, blocks, smem, s);
+            break;
+    case 2: launch<__half>(emb, out, b, f, d, ex, blocks, smem, s); break;
+    default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

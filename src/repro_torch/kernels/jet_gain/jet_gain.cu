@@ -7,9 +7,10 @@
 //   best_part = the other part (not k) of largest positive connectivity,
 //               smallest id on ties, k when there is none,
 //   best_conn = its connectivity, at least 0.
-// Slot part ids outside [0, k] count for nothing.  Row r = t*N + v reads
-// nbr_parts row r and wgt row v: the weights are shared by all T trials and
-// never copied.
+// Slot part ids outside [0, k] count for nothing.  Row r = (b*T + t)*N + v
+// reads nbr_parts row r and wgt row b*N + v: the weights are one (N, D)
+// panel per lane b of a fleet bucket (one in all without a lane axis),
+// shared by the lane's T trials and never copied.
 //
 // The TPU kernel sweeps all k parts per row, O(k*D), because it cannot
 // gather.  A row touches at most D parts, and every untouched part has
@@ -47,10 +48,18 @@ __device__ __forceinline__ bool better(int c, int p, int best_c, int best_p) {
   return c > best_c || (c == best_c && p < best_p);
 }
 
-// the weight row of panel row `row`: row % n, in 32 bits where that fits
-__device__ __forceinline__ long long wgt_row(long long row, long long n,
+// the weight row of panel row `row`: row % n without a lane axis (lane_rows
+// == rows), else (row / lane_rows) * n + row % n with lane_rows = T*N panel
+// rows per lane; in 32 bits where that fits (the result is at most row)
+__device__ __forceinline__ long long wgt_row(long long row, long long rows,
+                                             long long lane_rows, long long n,
                                              bool narrow) {
-  return narrow ? (long long)((unsigned)row % (unsigned)n) : row % n;
+  if (narrow) {
+    const unsigned r = (unsigned)row, v = r % (unsigned)n;
+    return lane_rows == rows ? v : r / (unsigned)lane_rows * (unsigned)n + v;
+  }
+  const long long v = row % n;
+  return lane_rows == rows ? v : row / lane_rows * n + v;
 }
 
 template <int G>
@@ -58,7 +67,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 jet_gain_rows(const int* __restrict__ nbr_parts, const int* __restrict__ wgt,
               const int* __restrict__ parts, int* __restrict__ conn_self,
               int* __restrict__ best_part, int* __restrict__ best_conn,
-              long long rows, long long n, int d, int k, bool narrow) {
+              long long rows, long long lane_rows, long long n, int d, int k,
+              bool narrow) {
   const long long row =
       ((long long)blockIdx.x * (kWarps * 32) + threadIdx.x) / G;
   const int j = threadIdx.x & (G - 1);
@@ -68,7 +78,7 @@ jet_gain_rows(const int* __restrict__ nbr_parts, const int* __restrict__ wgt,
     own = parts[row];
     if (j < d) {
       p = nbr_parts[row * d + j];
-      w = wgt[wgt_row(row, n, narrow) * d + j];
+      w = wgt[wgt_row(row, rows, lane_rows, n, narrow) * d + j];
       if (p < 0 || p > k) {
         p = -1;
         w = 0;
@@ -122,8 +132,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 jet_gain_hist(const int* __restrict__ nbr_parts, const int* __restrict__ wgt,
               const int* __restrict__ parts, int* __restrict__ conn_self,
               int* __restrict__ best_part, int* __restrict__ best_conn,
-              long long rows, long long n, int d, int k, int bins,
-              bool narrow) {
+              long long rows, long long lane_rows, long long n, int d, int k,
+              int bins, bool narrow) {
   extern __shared__ int hist_all[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -131,7 +141,7 @@ jet_gain_hist(const int* __restrict__ nbr_parts, const int* __restrict__ wgt,
   if (row >= rows) return;  // the whole warp leaves together
   int* hist = hist_all + warp * bins;
   const int* pr = nbr_parts + row * d;
-  const int* wr = wgt + wgt_row(row, n, narrow) * d;
+  const int* wr = wgt + wgt_row(row, rows, lane_rows, n, narrow) * d;
   const int own = parts[row];
   const int own_c = min(max(own, 0), k);
 
@@ -177,41 +187,56 @@ jet_gain_hist(const int* __restrict__ nbr_parts, const int* __restrict__ wgt,
 template <int G>
 void launch_rows(const int* nbr_parts, const int* wgt, const int* parts,
                  int* conn_self, int* best_part, int* best_conn,
-                 long long rows, long long n, int d, int k, bool narrow,
-                 cudaStream_t stream) {
+                 long long rows, long long lane_rows, long long n, int d,
+                 int k, bool narrow, cudaStream_t stream) {
   constexpr int kRowsPerBlock = kWarps * 32 / G;
   const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   jet_gain_rows<G><<<(unsigned)blocks, kWarps * 32, 0, stream>>>(
-      nbr_parts, wgt, parts, conn_self, best_part, best_conn, rows, n, d, k,
-      narrow);
+      nbr_parts, wgt, parts, conn_self, best_part, best_conn, rows,
+      lane_rows, n, d, k, narrow);
 }
 
 }  // namespace
 
-// rows = T*N panel rows, n = N (rows of wgt); returns the launch's CUDA error.
+// rows = B*T*N panel rows, lane_rows = T*N of them per lane (rows when
+// there is no lane axis), n = N (rows of a lane's wgt); returns the launch's
+// CUDA error.
 extern "C" int jet_gain_launch(const int* nbr_parts, const int* wgt,
                                const int* parts, int* conn_self,
                                int* best_part, int* best_conn, long long rows,
-                               long long n, int d, int k, void* stream) {
-  if (rows == 0) return 0;
+                               long long lane_rows, long long n, int d, int k,
+                               void* stream) {
+  if (rows == 0 || lane_rows == 0 || n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool narrow = rows <= 0xffffffffLL;
   if (d <= 32) {
     int g = 1;
     while (g < d) g *= 2;
     switch (g) {
-      case 1: launch_rows<1>(nbr_parts, wgt, parts, conn_self, best_part,
-                             best_conn, rows, n, d, k, narrow, s); break;
-      case 2: launch_rows<2>(nbr_parts, wgt, parts, conn_self, best_part,
-                             best_conn, rows, n, d, k, narrow, s); break;
-      case 4: launch_rows<4>(nbr_parts, wgt, parts, conn_self, best_part,
-                             best_conn, rows, n, d, k, narrow, s); break;
-      case 8: launch_rows<8>(nbr_parts, wgt, parts, conn_self, best_part,
-                             best_conn, rows, n, d, k, narrow, s); break;
-      case 16: launch_rows<16>(nbr_parts, wgt, parts, conn_self, best_part,
-                               best_conn, rows, n, d, k, narrow, s); break;
-      default: launch_rows<32>(nbr_parts, wgt, parts, conn_self, best_part,
-                               best_conn, rows, n, d, k, narrow, s); break;
+      case 1:
+        launch_rows<1>(nbr_parts, wgt, parts, conn_self, best_part,
+                       best_conn, rows, lane_rows, n, d, k, narrow, s);
+        break;
+      case 2:
+        launch_rows<2>(nbr_parts, wgt, parts, conn_self, best_part,
+                       best_conn, rows, lane_rows, n, d, k, narrow, s);
+        break;
+      case 4:
+        launch_rows<4>(nbr_parts, wgt, parts, conn_self, best_part,
+                       best_conn, rows, lane_rows, n, d, k, narrow, s);
+        break;
+      case 8:
+        launch_rows<8>(nbr_parts, wgt, parts, conn_self, best_part,
+                       best_conn, rows, lane_rows, n, d, k, narrow, s);
+        break;
+      case 16:
+        launch_rows<16>(nbr_parts, wgt, parts, conn_self, best_part,
+                        best_conn, rows, lane_rows, n, d, k, narrow, s);
+        break;
+      default:
+        launch_rows<32>(nbr_parts, wgt, parts, conn_self, best_part,
+                        best_conn, rows, lane_rows, n, d, k, narrow, s);
+        break;
     }
     return (int)cudaGetLastError();
   }
@@ -219,7 +244,7 @@ extern "C" int jet_gain_launch(const int* nbr_parts, const int* wgt,
   const long long blocks = (rows + kWarps - 1) / kWarps;
   const size_t smem = sizeof(int) * kWarps * bins;
   jet_gain_hist<<<(unsigned)blocks, kWarps * 32, smem, s>>>(
-      nbr_parts, wgt, parts, conn_self, best_part, best_conn, rows, n, d, k,
-      bins, narrow);
+      nbr_parts, wgt, parts, conn_self, best_part, best_conn, rows, lane_rows,
+      n, d, k, bins, narrow);
   return (int)cudaGetLastError();
 }

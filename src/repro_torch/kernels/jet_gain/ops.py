@@ -7,8 +7,10 @@ version in ``ref.py`` and a CUDA tensor to the kernel in ``jet_gain.cu``;
 there is no third path.
 
 Trial batching: the ELL adjacency (``nbr``, ``wgt``) is (N, D) and shared by
-all trials; per-trial arrays carry a leading T axis (``parts`` (T, N),
-``nbr_parts`` (T, N, D)), or none.
+all trials; per-trial arrays carry a T axis (``parts`` (T, N), ``nbr_parts``
+(T, N, D)), or none.  On a fleet bucket every array has a leading lane axis
+B: the adjacency is (B, N, D), one per lane and never copied T times, and
+per-trial arrays are (B, T, N[, D]).
 """
 from __future__ import annotations
 
@@ -17,22 +19,27 @@ import functools
 
 import torch
 
+from repro_torch.core.graph import trial_axis
 from repro_torch.kernels import _build, launch_counts
 from repro_torch.kernels.jet_gain.ref import jet_gain_ref
 
 
 def csr_to_ell(g, max_degree: int | None = None):
-    """Pad CSR adjacency to (N, D). Returns (nbr (N,D), wgt (N,D)).
+    """Pad CSR adjacency to (..., N, D). Returns (nbr, wgt), each (..., N, D).
 
     Slots beyond a vertex's degree have nbr == N (ghost) and weight 0.
     """
     deg = g.degrees()
     d = int(max_degree) if max_degree else int(deg.max())
     slots = torch.arange(d, dtype=torch.int32, device=g.device)
-    eidx = (g.xadj[:-1, None] + slots[None, :]).clamp(0, g.m_max - 1).long()
-    valid = slots[None, :] < deg[:, None]
-    nbr = torch.where(valid, g.adjncy[eidx], g.n_max)
-    wgt = torch.where(valid, g.adjwgt[eidx], 0)
+    eidx = (g.xadj[..., :-1, None] + slots).clamp(0, g.m_max - 1).long()
+    valid = slots < deg[..., None]
+
+    def gather(a):  # a (..., M) at the (..., N, D) edge slots
+        return a.gather(-1, eidx.flatten(-2)).view(eidx.shape)
+
+    nbr = torch.where(valid, gather(g.adjncy), g.n_max)
+    wgt = torch.where(valid, gather(g.adjwgt), 0)
     return nbr, wgt
 
 
@@ -42,18 +49,29 @@ def _ext(x: torch.Tensor, fill) -> torch.Tensor:
     return torch.cat([x, pad], -1)
 
 
+def _at_slots(x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., [T,] N+1) read at the neighbor slots ``nbr`` (..., N, D):
+    (..., [T,] N, D)."""
+    idx = nbr.clamp(0, x.shape[-1] - 1).long().flatten(-2)
+    idx = idx.view(*idx.shape[:-1], *[1] * (x.dim() - idx.dim()),
+                   idx.shape[-1])
+    out = x.gather(-1, idx.expand(*x.shape[:-1], idx.shape[-1]))
+    return out.view(*x.shape[:-1], *nbr.shape[-2:])
+
+
 def lookup_nbr_parts(nbr, parts, k: int):
-    """(..., N, D) neighbor part ids from a parts vector; ghost slots map to k."""
+    """(..., [T,] N, D) neighbor part ids from a parts batch; ghost slots
+    map to k."""
     n = parts.shape[-1]
-    nbr_parts = _ext(parts.int(), k)[..., nbr.clamp(0, n).long()]
-    return torch.where(nbr >= n, k, nbr_parts)
+    nbr_parts = _at_slots(_ext(parts.int(), k), nbr)
+    return torch.where(trial_axis(nbr >= n, nbr_parts.dim(), at=-3), k,
+                       nbr_parts)
 
 
 def update_nbr_parts(nbr, nbr_parts, move, dest, k: int):
     """Rewrite the slots whose neighbor moved (paper Alg 4.4)."""
-    idx = nbr.clamp(0, move.shape[-1]).long()
-    return torch.where(_ext(move, False)[..., idx], _ext(dest.int(), k)[..., idx],
-                       nbr_parts)
+    return torch.where(_at_slots(_ext(move, False), nbr),
+                       _at_slots(_ext(dest.int(), k), nbr), nbr_parts)
 
 
 def ell_to_matrix(nbr_parts, wgt, k: int):
@@ -67,44 +85,50 @@ def ell_to_matrix(nbr_parts, wgt, k: int):
     valid = (p >= 0) & (p <= k)
     mat = torch.zeros(*nbr_parts.shape[:-1], k + 1, dtype=torch.int32,
                       device=nbr_parts.device)
+    wgt = trial_axis(wgt, p.dim(), at=-3)
     return mat.scatter_add_(-1, torch.where(valid, p, 0),
                             torch.where(valid, wgt, 0))
 
 
 def _check(nbr_parts, wgt, parts):
-    d = nbr_parts.shape[-1]
-    if nbr_parts.dim() not in (2, 3) or wgt.dim() != 2:
-        raise ValueError(f"nbr_parts must be (T, N, D) or (N, D) and wgt "
-                         f"(N, D), got {tuple(nbr_parts.shape)}, "
-                         f"{tuple(wgt.shape)}")
-    if tuple(wgt.shape) != tuple(nbr_parts.shape[-2:]) or \
+    """The panel's (rows per lane, N, D): ``wgt`` is (N, D) or (B, N, D),
+    ``nbr_parts`` has wgt's shape or one more axis, T, before N."""
+    shapes = f"nbr_parts {tuple(nbr_parts.shape)}, wgt {tuple(wgt.shape)}, " \
+        f"parts {tuple(parts.shape)}"
+    if wgt.dim() not in (2, 3) or \
+            nbr_parts.dim() not in (wgt.dim(), wgt.dim() + 1):
+        raise ValueError(f"nbr_parts must be ([B,] [T,] N, D) and wgt "
+                         f"([B,] N, D): {shapes}")
+    lanes = wgt.shape[:-2]
+    if tuple(nbr_parts.shape[:len(lanes)]) != tuple(lanes) or \
+            tuple(nbr_parts.shape[-2:]) != tuple(wgt.shape[-2:]) or \
             tuple(parts.shape) != tuple(nbr_parts.shape[:-1]):
-        raise ValueError(f"shape mismatch: nbr_parts {tuple(nbr_parts.shape)}, "
-                         f"wgt {tuple(wgt.shape)}, parts {tuple(parts.shape)}")
+        raise ValueError(f"shape mismatch: {shapes}")
     for name, x in (("nbr_parts", nbr_parts), ("wgt", wgt), ("parts", parts)):
         if x.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {x.dtype}")
         if x.device != nbr_parts.device:
             raise ValueError(f"{name} is on {x.device}, nbr_parts on "
                              f"{nbr_parts.device}")
-    return d
+    n, d = wgt.shape[-2:]
+    return (parts[0] if lanes else parts).numel(), n, d
 
 
 @functools.cache
 def _launcher():
     """The C launcher ``jet_gain_launch`` of ``jet_gain.cu``, built at first use."""
     fn = _build.load("jet_gain").jet_gain_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2 + \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 + \
         [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _jet_gain_cuda(nbr_parts, wgt, parts, k: int):
-    """Launch ``jet_gain.cu`` on the current stream."""
-    d = _check(nbr_parts, wgt, parts)
-    if not all(x.is_contiguous() for x in (nbr_parts, wgt, parts)):
-        raise ValueError("jet_gain needs contiguous nbr_parts, wgt and parts")
+    """Launch ``jet_gain.cu`` on the current stream (strided views are
+    copied to contiguous first)."""
+    per_lane, n, d = _check(nbr_parts, wgt, parts)
+    nbr_parts, wgt, parts = (x.contiguous() for x in (nbr_parts, wgt, parts))
     fn = _launcher()
     out = torch.empty((3, *parts.shape), dtype=torch.int32,
                       device=parts.device)
@@ -112,7 +136,7 @@ def _jet_gain_cuda(nbr_parts, wgt, parts, k: int):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(nbr_parts.data_ptr(), wgt.data_ptr(), parts.data_ptr(),
                  out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-                 parts.numel(), wgt.shape[0], d, k, stream)
+                 parts.numel(), per_lane, n, d, k, stream)
     if err != 0:
         raise RuntimeError(f"jet_gain kernel launch failed with CUDA error {err}")
     launch_counts["jet_gain"] += 1

@@ -2,9 +2,10 @@
 ``repro.kernels.jet_gain.ref.jet_gain_ref``).
 
 Inputs (ELL padded adjacency):
-  nbr_parts : (T, N, D) or (N, D) int32 — part id of each neighbor (k on ghost slots)
-  nwgt      : (N, D) int32 — edge weight (0 on ghost slots), shared by all trials
-  parts     : (T, N) or (N,) int32 — current part of each vertex
+  nbr_parts : ([B,] [T,] N, D) int32 — part id of each neighbor (k on ghost slots)
+  nwgt      : ([B,] N, D) int32 — edge weight (0 on ghost slots), shared by
+              all trials of a lane
+  parts     : ([B,] [T,] N) int32 — current part of each vertex
   k         : number of parts
 
 Outputs, each shaped like ``parts``:
@@ -19,11 +20,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.graph import trial_axis
+
 
 def jet_gain_ref(nbr_parts, nwgt, parts, k: int):
     d = nbr_parts.shape[-1]
     p = nbr_parts.reshape(-1, d).long()
-    w = nwgt.expand(nbr_parts.shape).reshape(-1, d)
+    w = trial_axis(nwgt, nbr_parts.dim(), at=-3).expand(nbr_parts.shape)
+    w = w.reshape(-1, d)
     own = parts.reshape(-1, 1).long()
     valid = (p >= 0) & (p <= k)
     mat = torch.zeros(p.shape[0], k + 1, dtype=torch.int32, device=p.device)

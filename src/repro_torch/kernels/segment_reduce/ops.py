@@ -3,7 +3,9 @@
 Counterpart of ``repro.kernels.segment_reduce.ops``.
 :func:`segment_sum_sorted` sends a CPU tensor to the plain version in
 ``ref.py`` and a CUDA tensor to the kernel in ``segment_reduce.cu``; there
-is no third path.
+is no third path.  Strided views are taken (the card path copies them to
+contiguous first).  bfloat16 and float16 data are summed in float32 and
+rounded once to their dtype at the output, on both paths.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 from repro_torch.kernels import _build, launch_counts
 from repro_torch.kernels.segment_reduce.ref import segment_sum_sorted_ref
 
-DTYPES = (torch.int32, torch.float32)
+DTYPES = (torch.int32, torch.float32, torch.bfloat16, torch.float16)
 
 
 def _check(data, seg_ids, num_segments: int) -> None:
@@ -24,7 +26,8 @@ def _check(data, seg_ids, num_segments: int) -> None:
         raise ValueError(f"data must be (M, F) and seg_ids (M,), got "
                          f"{tuple(data.shape)}, {tuple(seg_ids.shape)}")
     if data.dtype not in DTYPES:
-        raise TypeError(f"data must be int32 or float32, got {data.dtype}")
+        raise TypeError(f"data must be one of {list(DTYPES)}, got "
+                        f"{data.dtype}")
     if seg_ids.dtype != torch.int32:
         raise TypeError(f"seg_ids must be int32, got {seg_ids.dtype}")
     if seg_ids.device != data.device:
@@ -51,9 +54,13 @@ def _library():
 
 
 def _segment_sum_cuda(data, seg_ids, num_segments: int):
-    """Launch ``segment_reduce.cu`` on the current stream."""
-    if not (data.is_contiguous() and seg_ids.is_contiguous()):
-        raise ValueError("segment_reduce needs contiguous data and seg_ids")
+    """Launch ``segment_reduce.cu`` on the current stream.  The kernel
+    sums int32 or float32; 16-bit data is widened to float32 for it, and
+    its float32 sums rounded once to the data's dtype."""
+    dtype = data.dtype
+    data = (data if dtype in (torch.int32, torch.float32)
+            else data.float()).contiguous()
+    seg_ids = seg_ids.contiguous()
     fn, tile_count = _library()
     m, f = data.shape
     tiles = tile_count(m, f, num_segments)
@@ -71,7 +78,7 @@ def _segment_sum_cuda(data, seg_ids, num_segments: int):
         raise RuntimeError(
             f"segment_reduce kernel launch failed with CUDA error {err}")
     launch_counts["segment_reduce"] += 1
-    return out
+    return out.to(dtype)
 
 
 def segment_sum_sorted(data, seg_ids, num_segments: int):

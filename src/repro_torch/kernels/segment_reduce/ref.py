@@ -5,6 +5,8 @@
 outside [0, S) are dropped, as ``jax.ops.segment_sum`` drops them.  An
 integer ``index_add_`` does not depend on the order of the adds, so on
 int32 this equals the kernel exactly; on float32 the order differs.
+bfloat16 and float16 rows are summed in float32 and rounded once to their
+dtype, as the kernel's wrapper does.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ def segment_sum_sorted_ref(data: torch.Tensor, seg_ids: torch.Tensor,
                            num_segments: int) -> torch.Tensor:
     s = num_segments
     idx = torch.where(seg_ids < 0, s, seg_ids).clamp(max=s).long()
-    out = torch.zeros(s + 1, data.shape[1], dtype=data.dtype,
+    acc = data if data.dtype in (torch.int32, torch.float32) else data.float()
+    out = torch.zeros(s + 1, data.shape[1], dtype=acc.dtype,
                       device=data.device)
-    return out.index_add_(0, idx, data)[:s]
+    return out.index_add_(0, idx, acc)[:s].to(data.dtype)

@@ -1,13 +1,20 @@
-"""Partitioner CLI: partition a generated or user-supplied graph.
+"""Partitioner CLI: partition generated or user-supplied graphs.
+
+Single graph:
 
     PYTHONPATH=src python -m repro_torch.launch.partition_cli --graph grid \
         --size 96 --k 16 --backend sorted --out parts.npy
 
+Fleet mode (DESIGN.md §10) — many graphs, shape-bucketed and batched
+through one V-cycle per bucket:
+
+    PYTHONPATH=src python -m repro_torch.launch.partition_cli \
+        --fleet grid:96 grid:90 cube:12 --k 16
+
 Runs on the GPU (``--device cuda``, the default) or the CPU (``--device
 cpu``) and prints the same JSON report as ``repro.launch.partition_cli``.
-Exits nonzero (with a stderr diagnostic) when the selected partition is
-unbalanced, so callers can gate on the return code.  Fleet mode waits for
-a later part of the port.
+Exits nonzero (with a stderr diagnostic) when the selected partition of
+any requested graph is unbalanced, so callers can gate on the return code.
 """
 from __future__ import annotations
 
@@ -18,7 +25,8 @@ import sys
 import numpy as np
 
 from repro_torch.core.graph import build_csr_host
-from repro_torch.core.partition import PartitionConfig, partition
+from repro_torch.core.partition import (PartitionConfig, partition,
+                                        partition_fleet)
 from repro_torch.data import graphs as gen
 
 GRAPH_KINDS = ("grid", "cube", "rmat", "geo", "smallworld", "edgelist")
@@ -44,6 +52,23 @@ def _make_graph(kind: str, size: int, seed: int, edges: str | None = None):
     raise SystemExit(f"unknown graph kind {kind!r}")
 
 
+def _parse_fleet_spec(spec: str, default_size: int, default_seed: int):
+    """``name[:size[:seed]]`` -> (kind, size, seed)."""
+    parts = spec.split(":")
+    kind = parts[0]
+    try:
+        if kind not in GRAPH_KINDS or kind == "edgelist" or len(parts) > 3:
+            raise ValueError
+        size = int(parts[1]) if len(parts) > 1 else default_size
+        seed = int(parts[2]) if len(parts) > 2 else default_seed
+    except ValueError:
+        raise SystemExit(
+            f"bad --fleet spec {spec!r}: expected name[:size[:seed]] with "
+            f"name in {GRAPH_KINDS[:-1]} and integer size/seed"
+        ) from None
+    return kind, size, seed
+
+
 def _graph_report(g, res, k):
     return {
         "n": int(g.n), "m": int(g.m) // 2, "k": k,
@@ -60,12 +85,68 @@ def _graph_report(g, res, k):
     }
 
 
+def _fleet(args, cfg) -> int:
+    """Fleet mode: one JSON report per member; exits 1 if any member is
+    unbalanced, 2 on duplicate members."""
+    if args.out or args.edges:
+        raise SystemExit(
+            "--out/--edges are single-graph options and would be "
+            "silently ignored in fleet mode — drop them or run per graph"
+        )
+    specs = [_parse_fleet_spec(s, args.size, args.seed) for s in args.fleet]
+    dupes = sorted({
+        f"{kind}:{size}:{seed}" for i, (kind, size, seed)
+        in enumerate(specs) if (kind, size, seed) in specs[:i]
+    })
+    if dupes:
+        print(
+            f"ERROR: duplicate --fleet member name(s): {', '.join(dupes)} — "
+            "every fleet member must be unique, or downstream consumers "
+            "keying reports by spec would silently collapse entries (give "
+            "duplicates distinct seeds, e.g. grid:96:0 grid:96:1)",
+            file=sys.stderr,
+        )
+        return 2
+    graphs = [_make_graph(kind, size, seed) for kind, size, seed in specs]
+    fres = partition_fleet(graphs, cfg, device=args.device)
+    report = {
+        "fleet": [
+            {"spec": args.fleet[i]}
+            | _graph_report(graphs[i], fres.results[i], args.k)
+            for i in range(len(graphs))
+        ],
+        "buckets": [
+            {"capacity": list(b.capacity), "members": b.indices,
+             "levels": b.levels}
+            for b in fres.buckets
+        ],
+        "times": fres.times,
+    }
+    print(json.dumps(report, indent=1))
+    unbalanced = [args.fleet[i] for i, r in enumerate(fres.results)
+                  if not r.balanced]
+    if unbalanced and not args.allow_unbalanced:
+        print(
+            f"ERROR: selected partition unbalanced for {len(unbalanced)}/"
+            f"{len(graphs)} fleet member(s) ({', '.join(unbalanced)}) at "
+            f"lam={args.imbalance} — failing so callers can gate on the exit "
+            "code (--allow-unbalanced to override)",
+            file=sys.stderr,
+        )
+        return 1
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--graph", default="grid", choices=list(GRAPH_KINDS))
     ap.add_argument("--size", type=int, default=64)
     ap.add_argument("--edges", default=None,
                     help="path to a .npy (E,2) edge list (--graph edgelist)")
+    ap.add_argument("--fleet", nargs="+", default=None, metavar="SPEC",
+                    help="fleet mode: partition several graphs in one "
+                         "shape-bucketed batched run; SPEC is "
+                         "name[:size[:seed]], e.g. grid:96 cube:12")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--k", type=int, default=8)
     ap.add_argument("--imbalance", type=float, default=0.03)
@@ -82,7 +163,8 @@ def main(argv=None):
     ap.add_argument("--coarsen-mode", default="device",
                     choices=["device", "host"],
                     help="device: on-device levels on the shape schedule; "
-                         "host: legacy per-level numpy repack")
+                         "host: legacy per-level numpy repack (single-graph "
+                         "mode only)")
     ap.add_argument("--bucket-ratio", type=float, default=1.6,
                     help="shape-schedule geometric shrink per rung")
     ap.add_argument("--bucket-safety", type=float, default=1.25,
@@ -101,7 +183,8 @@ def main(argv=None):
     ap.add_argument("--allow-unbalanced", action="store_true",
                     help="exit 0 even when the selected partition misses "
                          "the balance constraint")
-    ap.add_argument("--out", default=None, help="write parts as .npy")
+    ap.add_argument("--out", default=None, help="write parts as .npy "
+                    "(single-graph mode only)")
     args = ap.parse_args(argv)
 
     trial_seeds = (
@@ -121,6 +204,8 @@ def main(argv=None):
                           bucket_align=args.bucket_align,
                           trials=args.trials, trial_seeds=trial_seeds)
 
+    if args.fleet:
+        return _fleet(args, cfg)
     g = _make_graph(args.graph, args.size, args.seed, edges=args.edges)
     res = partition(g, cfg, device=args.device)
     print(json.dumps(_graph_report(g, res, args.k), indent=1))
@@ -141,3 +226,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     raise SystemExit(main())
+

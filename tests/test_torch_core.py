@@ -257,10 +257,12 @@ def _shape_only_graph(n_max, m_max):
                     torch.tensor(0))
 
 
-def test_sorted_backend_refuses_wrapping_keys():
+def test_sorted_backend_refuses_wrapping_keys(monkeypatch):
     """Past n_max*(k+1) = 2^32-1 the reference's uint32 keys wrap and its
-    sorted connectivity is silently wrong; the port refuses the shape."""
-    cn.check_sorted(_shape_only_graph(65535, 64), 65536, 1)  # 2^32-1: fits
+    sorted connectivity is silently wrong; the port refuses the shape.
+    Rows whose segment ids would pass int32 are not refused (the reference
+    takes them): they reach segment_reduce in chunks of rows that fit."""
+    cn.check_sorted(_shape_only_graph(65535, 64), 65536)  # 2^32-1: fits
     big = _shape_only_graph(65536, 64)
     parts = torch.zeros(1, 1, dtype=torch.int32).expand(1, 65536)
     with pytest.raises(ValueError, match="2\\^32-1"):
@@ -269,9 +271,16 @@ def test_sorted_backend_refuses_wrapping_keys():
         pa.partition(_shape_only_graph(2**22 + 1, 64),
                      pa.PartitionConfig(k=1024, backend="sorted"),
                      device="cpu")
-    with pytest.raises(ValueError, match="int32 segment ids"):
-        cn.check_sorted(_shape_only_graph(64, 2**30), 8, 2)
-    cn.check_sorted(_shape_only_graph(64, 2**30 - 1), 8, 2)
+    cn.check_sorted(_shape_only_graph(64, 2**30), 8)
+    rng = np.random.default_rng(0)
+    data = torch.from_numpy(rng.integers(-9, 9, (3, 2, 40)).astype(np.int32))
+    seg = torch.from_numpy(np.sort(rng.integers(0, 7, (3, 2, 40)), -1)
+                           .astype(np.int32))
+    want = torch.zeros(6, 7, dtype=torch.int32).scatter_add_(
+        1, seg.reshape(6, 40).long(), data.reshape(6, 40)).view(3, 2, 7)
+    assert torch.equal(cn._segment_sum(data, seg, 7), want)
+    monkeypatch.setattr(cn, "MAX_IDS", 4 * 7)  # four rows per launch
+    assert torch.equal(cn._segment_sum(data, seg, 7), want)
 
 
 # -- refinement moves ------------------------------------------------------------

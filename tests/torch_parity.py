@@ -2,7 +2,11 @@
 
 Each case is one small graph × connectivity backend × k, partitioned with
 T=2 trials and ``coarse_target=64`` by both packages; a few more cases
-coarsen in host mode (a ``_host`` suffix on the name).  :func:`summary`
+coarsen in host mode (a ``_host`` suffix on the name).  The fleet cases
+(``fleet_<backend>_k<k>_t<T>``) hold the reference fleet test's graphs
+(grids 13x13, 12x12, 8x8, and 8x8 over-padded to n_max = m_max = 1024),
+each partitioned standalone by the reference: a port fleet member must
+equal its member's summary (:func:`member_summary`).  :func:`summary`
 reduces a result to the integers the tests compare (cut, per-trial cuts
 and balance, best trial, per-level stats, sha256 of the parts arrays); the
 same summaries of the JAX reference are committed as
@@ -22,6 +26,7 @@ from __future__ import annotations
 import functools
 import hashlib
 import json
+import subprocess
 import sys
 from pathlib import Path
 
@@ -40,6 +45,11 @@ KS = (2, 8)
 TRIALS = 2
 COARSE_TARGET = 64
 HOST_CASES = ("grid16_dense_k8_host", "rmat9_sorted_k8_host")
+FLEET = ((13, 13), (12, 12), (8, 8))  # tests/test_fleet.py's fleet
+FLEET_OVERPAD = 1024                  # and its over-padded 8x8 member
+FLEET_KS = (2, 8, 33)
+FLEET_TRIALS = (1, 2)
+FLEET_CONFIG = dict(coarse_target=48, max_iter=30, patience=3)
 
 
 def case_names(graph: str, backends=BACKENDS) -> list[str]:
@@ -65,6 +75,37 @@ def config_kwargs(name: str) -> dict:
     _, backend, k, mode = parse(name)
     return dict(k=k, trials=TRIALS, coarse_target=COARSE_TARGET,
                 backend=backend, coarsen_mode=mode)
+
+
+def fleet_case_names() -> list[str]:
+    return [f"fleet_{b}_k{k}_t{t}" for b in BACKENDS for k in FLEET_KS
+            for t in FLEET_TRIALS]
+
+
+def fleet_config_kwargs(name: str) -> dict:
+    _, backend, k, t = name.split("_")
+    return dict(k=int(k[1:]), trials=int(t[1:]), backend=backend,
+                **FLEET_CONFIG)
+
+
+def fleet_graphs(graph_module, gen_module) -> list:
+    """The fleet's graphs, made with either package's modules."""
+    n, edges, ew, vw = graph_module.graph_to_host(gen_module.grid2d(8, 8))
+    over = graph_module.build_csr_host(n, edges, ew, vw, n_max=FLEET_OVERPAD,
+                                       m_max=FLEET_OVERPAD)
+    return [gen_module.grid2d(a, b) for a, b in FLEET] + [over]
+
+
+def member_summary(res) -> dict:
+    """:func:`summary` of a fleet member or a standalone run, comparable
+    across the two: only the levels the graph's own hierarchy has, without
+    the capacities (a bucket's ladder differs from the standalone one)."""
+    out = summary(res)
+    out["level_stats"] = [
+        {kk: v for kk, v in st.items()
+         if kk not in ("n_max", "m_max", "active")}
+        for st in res.level_stats if st.get("active", True)]
+    return out
 
 
 def sha(a) -> str:
@@ -172,7 +213,8 @@ SEGMENT_KINDS = ("one", "each", "span", "empty", "drop", "ghost")
 
 def segment_case(m: int, f: int, kind: str, dtype, seed: int, device):
     """A segment_reduce panel as torch tensors (data (m, f), seg_ids (m,),
-    num_segments) made on ``device`` from ``seed``.
+    num_segments) made on ``device`` from ``seed``; float data is normal,
+    made in float32 and rounded to ``dtype``.
 
     kind: ``one`` all rows in one segment; ``each`` every row its own;
     ``span`` four segments, so runs span many tiles; ``empty`` 4m+7
@@ -211,8 +253,25 @@ def segment_case(m: int, f: int, kind: str, dtype, seed: int, device):
         data = torch.randint(-2**31, 2**31, (m, f), dtype=torch.int64, **kw)
         data = data.int()
     else:
-        data = torch.randn(m, f, **kw)
+        data = torch.randn(m, f, **kw).to(dtype)
     return data, seg, s
+
+
+def segment_error_ratio(got, want, data, seg, s) -> float:
+    """The largest |kernel - plain| of a float segment_reduce result over
+    its tolerance: 1e-5 + 1e-5 * (the sum of |x| over the segment), the
+    float32 sums' order, plus for bfloat16 and float16 one rounding step of
+    the output, eps * max(|kernel|, |plain|).  At most 1 passes."""
+    import torch
+
+    from repro_torch.kernels.segment_reduce.ref import segment_sum_sorted_ref
+
+    g, w = got.float(), want.float()
+    bound = 1e-5 + 1e-5 * segment_sum_sorted_ref(data.float().abs(), seg, s)
+    if got.dtype in (torch.bfloat16, torch.float16):
+        bound = bound + torch.finfo(got.dtype).eps * torch.maximum(
+            g.abs(), w.abs())
+    return float(((g - w).abs() / bound).max()) if got.numel() else 0.0
 
 
 def fm_error_ratio(got, want, emb) -> float:
@@ -265,7 +324,36 @@ def load_golden() -> dict:
     return json.loads(GOLDEN.read_text())["cases"]
 
 
+def load_golden_fleet() -> dict:
+    """Per fleet case, the reference's standalone member summaries."""
+    return json.loads(GOLDEN.read_text())["fleet"]
+
+
+def jax_fleet_members(name: str) -> list:
+    """The reference's standalone ``partition()`` of each fleet member."""
+    from repro.core import graph as gr
+    from repro.core.partition import PartitionConfig, partition
+    from repro.data import graphs as gen
+
+    cfg = PartitionConfig(**fleet_config_kwargs(name))
+    return [partition(g, cfg) for g in fleet_graphs(gr, gen)]
+
+
+def _fleet_case_in_subprocess(name: str) -> list:
+    """:func:`jax_fleet_members` summaries from a process of their own: one
+    process that compiles every case's programs runs XLA's CPU compiler out
+    of memory."""
+    out = subprocess.run([sys.executable, __file__, "--fleet-case", name],
+                         capture_output=True, text=True, check=True).stdout
+    return json.loads(out.splitlines()[-1])
+
+
 def write_golden() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(3) as pool:
+        names = fleet_case_names()
+        fleet = dict(zip(names, pool.map(_fleet_case_in_subprocess, names)))
     cases = {name: summary(jax_result(name)) for name in all_cases()}
     GOLDEN.write_text(json.dumps({
         "about": "JAX reference summaries of the port's small partition "
@@ -274,6 +362,10 @@ def write_golden() -> None:
         "trials": TRIALS, "coarse_target": COARSE_TARGET,
         "graphs": {g: f"{fn}{args}" for g, (fn, args) in GRAPHS.items()},
         "cases": cases,
+        "fleet_graphs": "grid2d 13x13, 12x12, 8x8; grid2d 8x8 at n_max = "
+                        f"m_max = {FLEET_OVERPAD}",
+        "fleet_config": FLEET_CONFIG,
+        "fleet": fleet,
     }, indent=1) + "\n")
 
 
@@ -304,6 +396,10 @@ def suite_parity(names) -> bool:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--suite"]:
         raise SystemExit(0 if suite_parity(sys.argv[2:]) else 1)
+    if sys.argv[1:2] == ["--fleet-case"]:
+        print(json.dumps([member_summary(r)
+                          for r in jax_fleet_members(sys.argv[2])]))
+        raise SystemExit(0)
     if sys.argv[1:] != ["--write"]:
         raise SystemExit(f"usage: {sys.argv[0]} --write | --suite [name ...]")
     write_golden()
