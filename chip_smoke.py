@@ -97,6 +97,22 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       over-padded member, dense, sorted and ell, k in {2, 8, 33}, T in {1,
       2}: the card's fleet equals the CPU's and the JAX reference's
       standalone runs (the golden file).
+  (o) partition-as-a-service at (m)'s sizes: ``PartitionServer`` (ell, k
+      in {16, 64}, T=4, lanes 4, a 50 ms window, the ladder fitted to the
+      largest family) over six families (grid 256x256 at weight 2 and
+      250x250, small_world 245^2 and 250^2, grid3d 40^3, random_geometric
+      200^2); the bucket map, with one bucket holding two true sizes; the
+      warmup grid (every lane composition of each rung's families), a
+      burst of 48 requests at 2000 req/s (throughput, occupancy), a Poisson
+      replay of 24 at half that throughput (p50/p95 latency, new allocator
+      segments); no new signature after warmup, jet_gain launched once per
+      batched loop iteration, every response equal bit for bit to its
+      standalone partition() on the card; peak memory, filler lanes.
+  (p) the reference serve test's burst (tests/test_serve.py) served on the
+      card on dense, sorted and ell: responses and dispatch logs equal the
+      JAX reference's (golden); then two processes on one fresh kernel
+      library directory: the first builds the serve path's kernels, the
+      second builds nothing.
   The script ends by checking that no jax or repro (JAX package) module was
   imported.  ``--phases`` runs a subset, for debugging; such a run prints no
   result line.
@@ -1073,6 +1089,261 @@ def phase_fleet_full_width(tp, dev):
 
 
 # ---------------------------------------------------------------------------
+# partition-as-a-service: PartitionServer over the fleet
+# ---------------------------------------------------------------------------
+
+# a mesh/GNN pipeline's jobs at (m)'s sizes: (family, size, seed, weight)
+SERVE_FAMILIES = (("grid", 256, 0, 2.0), ("grid", 250, 0, 1.0),
+                  ("smallworld", 245, 0, 1.0), ("smallworld", 250, 1, 1.0),
+                  ("cube", 250, 0, 1.0), ("geo", 200, 0, 1.0))
+SERVE_KS = (16, 64)
+
+
+def _batched_iterations(fleets) -> int:
+    """jet_gain launches that stacked-fleet runs must make: per bucket and
+    level, the most refinement iterations of any of its rows."""
+    total = 0
+    for fres in fleets:
+        by_tag = fres.results
+        for b in fres.buckets:
+            real = [by_tag[t] for t in b.indices if t is not None]
+            total += sum(max(max(r.level_stats[li]["iterations"])
+                             for r in real) for li in range(b.levels))
+    return total
+
+
+def _replay(server, workload):
+    """One replay through the server: (records, wall seconds, stacked-fleet
+    results it ran)."""
+    import asyncio
+
+    from repro_torch.launch import partition_serve as ps
+    from repro_torch.launch import serve_cli
+
+    fleets = []
+    run_fleet = ps.partition_fleet_stacked
+
+    def keep(*a, **kw):
+        fres = run_fleet(*a, **kw)
+        fleets.append(fres)
+        return fres
+
+    with swapped(ps, "partition_fleet_stacked", keep):
+        t0 = time.perf_counter()
+        records = asyncio.run(serve_cli.replay_workload(server, workload))
+        wall = time.perf_counter() - t0
+    return records, wall, fleets
+
+
+def _latency_ms(records, q) -> float:
+    return 1e3 * float(np.percentile([r["latency_s"] for r in records], q))
+
+
+def phase_serve_full_width(tp):
+    """(o): a partition service at (m)'s graph sizes: warmup, a burst, a
+    Poisson replay; every response equal to its standalone run."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import graph as gr
+    from repro_torch.core.partition import (PartitionConfig,
+                                            fleet_signature_count)
+    from repro_torch.launch import partition_serve as ps
+    from repro_torch.launch import serve_cli
+
+    spec = {"families": [{"graph": f, "size": s, "seed": sd, "weight": w}
+                         for f, s, sd, w in SERVE_FAMILIES],
+            "ks": list(SERVE_KS), "count": 48, "rate_rps": 2000.0,
+            "trials": 4, "seed": 0}
+    t0 = time.perf_counter()
+    burst = serve_cli.build_workload(spec)
+    by_family = {r["family"]: r["graph"] for r in burst}  # first-seen order
+    names, shapes = list(by_family), list(by_family.values())
+    sizes = [int(g.n) for g in shapes]
+    scfg = ps.ServeConfig(
+        ladder_n=max(g.n_max for g in shapes),
+        ladder_m=max(g.m_max for g in shapes), window_s=0.05, lanes=4,
+        max_batch=64, partition=PartitionConfig(backend="ell", trials=4))
+    server = ps.PartitionServer(scfg)
+    _, bucket_map = gr.bucket_graphs(shapes, schedule=server.schedule)
+    print(f"(o) families {names} (vertices {sizes}), made in "
+          f"{time.perf_counter() - t0:.1f} s; ladder top "
+          f"({scfg.ladder_n}, {scfg.ladder_m}); buckets "
+          + "; ".join(f"{list(cap)}: {[names[i] for i in ix]}"
+                      for cap, ix in sorted(bucket_map.items(),
+                                            reverse=True)))
+    if not any(len({sizes[i] for i in ix}) >= 2
+               for ix in bucket_map.values()):
+        raise AssertionError("(o) no bucket holds two different true sizes")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm = server.warmup(shapes, ks=SERVE_KS, trials=(4,))
+    print(f"(o) warmup (compositions=subsets, k in {SERVE_KS}, T=4): "
+          f"{len(server.warmup_log)} dispatches, "
+          f"{warm['new_executables']} new signatures, "
+          f"warmup_s {warm['warmup_s']:.3f}")
+
+    # the served path: counts from 0 just before, read just after
+    sigs0 = fleet_signature_count()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    rec_burst, burst_s, fleets = _replay(server, burst)
+    occ_burst = dict(server.stats["occupancy_hist"])
+    rps = len(rec_burst) / burst_s
+    # a Poisson stream at half the burst's throughput, on the same graphs
+    poisson = serve_cli.build_workload(dict(spec, count=24, seed=1,
+                                            rate_rps=rps / 2))
+    for r in poisson:
+        r["graph"] = by_family[r["family"]]
+    seg0 = torch.cuda.memory_stats()["segment.all.allocated"]
+    rec_poisson, poisson_s, more = _replay(server, poisson)
+    torch.cuda.synchronize()
+    new_segments = torch.cuda.memory_stats()["segment.all.allocated"] - seg0
+    launches = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    fleets += more
+    new_sigs = fleet_signature_count() - sigs0
+    covered = ps.serve_signatures(server.dispatch_log) <= \
+        ps.serve_signatures(server.warmup_log)
+    batched = _batched_iterations(fleets)
+    metrics = server.metrics()
+
+    records = rec_burst + rec_poisson
+    t0 = time.perf_counter()
+    solos = serve_cli.verify_responses(records, burst, scfg.partition,
+                                       server.device)
+    verify_s = time.perf_counter() - t0
+    for rec in records:
+        solo = solos[(rec["family"], rec["k"], rec["trials"])]
+        res = rec["result"]
+        if tp.member_summary(res) != tp.member_summary(solo) or \
+                res.imbalance != solo.imbalance or \
+                not torch.equal(res.trial_parts, solo.trial_parts):
+            raise AssertionError(f"(o) {rec['family']} k={rec['k']} differs "
+                                 "from its standalone run")
+    unbalanced = sum(not r["balanced"] for r in records)
+
+    print(f"(o) burst: {len(rec_burst)} requests at 2000 req/s in "
+          f"{burst_s:.3f} s: {rps:.4f} req/s, latency p50 "
+          f"{_latency_ms(rec_burst, 50):.1f} ms, p95 "
+          f"{_latency_ms(rec_burst, 95):.1f} ms; occupancy (real lanes: "
+          f"buckets) {occ_burst}")
+    print(f"(o) Poisson: {len(rec_poisson)} requests at "
+          f"{rps / 2:.4f} req/s in {poisson_s:.3f} s "
+          f"({len(rec_poisson) / poisson_s:.4f} req/s), latency p50 "
+          f"{_latency_ms(rec_poisson, 50):.1f} ms, p95 "
+          f"{_latency_ms(rec_poisson, 95):.1f} ms; new allocator segments "
+          f"(segment.all.allocated) {new_segments}")
+    print(f"(o) server: {metrics['dispatches']} dispatches, "
+          f"{metrics['buckets']} buckets, occupancy "
+          f"{metrics['occupancy_hist']}, filler lanes "
+          f"{metrics['filler_lanes']}, mean occupancy "
+          f"{metrics['mean_occupancy']:.3f}; max_memory_allocated {peak} "
+          f"bytes; jet_gain launches {launches.get('jet_gain', 0)} (batched "
+          f"loop iterations {batched}); new signatures after warmup "
+          f"{new_sigs}, replay covered by warmup {covered}; {unbalanced} "
+          f"unbalanced responses")
+    print(f"(o) every response == its standalone partition() on the card bit "
+          f"for bit ({len(solos)} standalone runs, {verify_s:.1f} s)")
+    if new_sigs != 0 or not covered:
+        raise AssertionError(f"(o) {new_sigs} new signatures after warmup, "
+                             f"covered {covered}")
+    if launches.get("jet_gain", 0) != batched:
+        raise AssertionError(f"(o) jet_gain launches {launches} != batched "
+                             f"loop iterations {batched}")
+    if metrics["responses"] != len(records) or \
+            not any(b["real"] >= 2 and len(set(b["member_n_max"])) >= 2
+                    for d in server.dispatch_log for b in d["buckets"]):
+        raise AssertionError(f"(o) responses {metrics['responses']} != "
+                             f"{len(records)}, or no mixed bucket")
+    return {"launches": launches.get("jet_gain", 0),
+            "warmup_s": warm["warmup_s"], "throughput_rps": rps,
+            "p50_ms": _latency_ms(rec_burst, 50),
+            "p95_ms": _latency_ms(rec_burst, 95),
+            "poisson_p50_ms": _latency_ms(rec_poisson, 50),
+            "poisson_p95_ms": _latency_ms(rec_poisson, 95),
+            "peak_bytes": peak}
+
+
+CACHE_PROBE = """
+import dataclasses, json, sys
+import torch_parity as tp
+from repro_torch.core import partition as pa
+from repro_torch.data import graphs as gen
+from repro_torch.kernels import _build
+from repro_torch.launch import partition_serve as ps
+for name in ("serve_sorted", "serve_ell"):
+    cfg = dataclasses.replace(tp.serve_config(ps, pa, name),
+                              compile_cache=sys.argv[1])
+    tp.run_burst(ps.PartitionServer(cfg), tp.serve_burst(gen))
+print(json.dumps(_build.cache_stats().snapshot()))
+"""
+
+
+def phase_serve_small(tp):
+    """(p): the reference serve test's burst on the card, every backend:
+    responses and dispatch logs equal the golden file's; then the kernel
+    library cache across two processes."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.core import partition as pa
+    from repro_torch.data import graphs as gen
+    from repro_torch.kernels import _build
+    from repro_torch.launch import partition_serve as ps
+
+    golden = tp.load_golden_serve()
+    launched = {}
+    for name in tp.serve_case_names():
+        server = ps.PartitionServer(tp.serve_config(ps, pa, name))
+        got, launches = _counted(tp.run_burst, server, tp.serve_burst(gen))
+        log = json.loads(json.dumps(list(server.dispatch_log)))
+        if [tp.member_summary(r) for r in got] != golden[name]["members"] \
+                or log != golden[name]["dispatch_log"]:
+            raise AssertionError(f"(p) {name}: responses or dispatch log "
+                                 "differ from the reference's (golden)")
+        for kernel in launches:
+            launched[kernel] = launched.get(kernel, 0) + launches[kernel]
+    if not launched.get("jet_gain") or not launched.get("segment_reduce"):
+        raise AssertionError(f"(p) launches {launched}: ell and sorted must "
+                             "run their kernels")
+    print(f"(p) the reference serve test's burst (grids 6x6, 6x5 at k=2, 4x4 "
+          f"at k=3; lanes 2) on dense, sorted, ell: responses and dispatch "
+          f"logs == the JAX reference's (golden); launches {launched}")
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cache = tempfile.mkdtemp(prefix="serve-cache-", dir=_build.BUILD_DIR)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests")]))
+    try:
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-c", CACHE_PROBE, cache],
+                                 capture_output=True, text=True, env=env,
+                                 timeout=600)
+            if out.returncode != 0:
+                raise AssertionError(f"(p) cache probe failed:\n{out.stderr}")
+            runs.append((json.loads(out.stdout.splitlines()[-1]),
+                         time.perf_counter() - t0))
+        libs = sorted(p.name.split("-")[0] for p in Path(cache).glob("*.so"))
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    (first, first_s), (second, second_s) = runs
+    print(f"(p) kernel-library cache, two processes on one fresh directory: "
+          f"first {first} in {first_s:.1f} s, second {second} in "
+          f"{second_s:.1f} s; libraries {libs}")
+    if libs != ["jet_gain", "segment_reduce"] or \
+            first.get("cache_misses") != len(libs) or \
+            second.get("cache_misses", 0) != 0 or \
+            second.get("cache_hits", 0) < 1:
+        raise AssertionError("(p) the second process must build nothing")
+    return launched
+
+
+# ---------------------------------------------------------------------------
 # serving: FM (fm_interaction) and Gemma-3 1B (flash_attention)
 # ---------------------------------------------------------------------------
 
@@ -1570,8 +1841,8 @@ def phase_gemma(tp, dev):
     }
 
 
-PHASES = ("a", "b", "b2", "b3", "c", "d", "n", "e", "g", "h", "m", "i", "j",
-          "k", "l")
+PHASES = ("a", "b", "b2", "b3", "c", "d", "n", "p", "e", "g", "h", "m", "o",
+          "i", "j", "k", "l")
 
 
 def main(argv=None) -> int:
@@ -1617,21 +1888,25 @@ def main(argv=None) -> int:
                           ("n", phase_fleet_small, (tp,))):
         if tag in run:
             timed(tag, phase, *a)
+    jet_gain = {"name": "jet_gain"}
+    segment = {"name": "segment_reduce"}
+    if "p" in run:
+        served = timed("p", phase_serve_small, tp)
+        segment["serve"] = {"launches": served["segment_reduce"]}
     if "e" in run:
-        g, cfg, res_ell, jet_gain = timed("e, f", phase_full_width, dev)
-        entries.append(jet_gain)
+        g, cfg, res_ell, jet_gain_e = timed("e, f", phase_full_width, dev)
+        jet_gain.update(jet_gain_e)
     if "g" in run:
-        entries.append(timed("g", phase_sorted_full_width, tp, dev, g, cfg,
+        segment.update(timed("g", phase_sorted_full_width, tp, dev, g, cfg,
                              res_ell))
         del g, res_ell
+    entries += [jet_gain, segment]
     if "h" in run:
         timed("h", phase_powerlaw, tp)
     if "m" in run:
-        fleet = timed("m", phase_fleet_full_width, tp, dev)
-        if "e" in run:
-            jet_gain["fleet"] = fleet
-        else:
-            entries.append({"name": "jet_gain", "fleet": fleet})
+        jet_gain["fleet"] = timed("m", phase_fleet_full_width, tp, dev)
+    if "o" in run:
+        jet_gain["serve"] = timed("o", phase_serve_full_width, tp)
     if "i" in run:
         timed("i", phase_fm_vs_plain, tp, dev)
     if "j" in run:

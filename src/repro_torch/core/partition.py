@@ -14,6 +14,11 @@ bit for bit.
 Every entry point runs on the card by default: ``device=None`` means
 ``cuda``, and raises when there is none.  Pass ``device="cpu"`` to run the
 plain versions of the kernels on the CPU.
+
+The port compiles nothing per shape, so the reference's count of compiled
+fleet executables (``uncoarsen_level_fleet._cache_size()``) becomes a
+registry of the shape signatures the fleet has run:
+:func:`fleet_signature_count`.
 """
 from __future__ import annotations
 
@@ -227,6 +232,36 @@ def partition(g: Graph, cfg: PartitionConfig, device=None) -> PartitionResult:
     )
 
 
+# every (lanes, T, n_max, m_max, nc, c, ell width, k, backend) signature a
+# fleet level has run in this process (see level_signatures)
+_FLEET_SIGNATURES: set = set()
+
+
+def level_signatures(lanes: int, trials: int, level_stats, *, k: int,
+                     backend: str, c_finest: float, c_coarse: float) -> set:
+    """The signatures of one bucket's uncoarsening levels: (lanes, T, the
+    level's (n_max, m_max), the coarser level's n_max, c, the ELL width
+    (ell only), k, backend), the key of the reference's compiled
+    ``uncoarsen_level_fleet``.  ``level_stats`` is the bucket's metas,
+    coarsest first."""
+    sigs = set()
+    for j, st in enumerate(level_stats):
+        nc = level_stats[j - 1]["n_max"] if j else st["n_max"]
+        c = c_finest if st["level"] == 0 else c_coarse
+        width = st.get("ell_width") if backend == "ell" else None
+        sigs.add((lanes, trials, st["n_max"], st["m_max"], nc, c, width, k,
+                  backend))
+    return sigs
+
+
+def fleet_signature_count() -> int:
+    """Distinct level signatures the fleet has run in this process: the
+    counterpart of the reference's count of compiled fleet executables.
+    "Zero new executables after warmup" means, in the port, that a replay
+    runs no shape signature that warmup did not, so this count stays put."""
+    return len(_FLEET_SIGNATURES)
+
+
 @dataclass
 class FleetBucket:
     """Host-side record of one shape bucket's run."""
@@ -361,6 +396,9 @@ def partition_fleet_stacked(buckets, cfg: PartitionConfig, schedule,
         ep["stats"] = torch.stack([torch.stack([st[kk].int() for kk in names])
                                    for st in stats_per_level])  # (L, S, B, T)
         times["uncoarsen_s"] += time.perf_counter() - t0
+        _FLEET_SIGNATURES.update(level_signatures(
+            len(sb.tags), trials, metas, k=k, backend=cfg.backend,
+            c_finest=cfg.c_finest, c_coarse=cfg.c_coarse))
         bucket = FleetBucket(capacity=sb.capacity, indices=list(sb.tags),
                              levels=len(levels), level_stats=metas)
         pending.append((bucket, sb.orig_n_max, names, ep, parts, parts_bt))

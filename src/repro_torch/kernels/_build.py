@@ -7,6 +7,12 @@ kernel's directory, so an edited source or header is never served a stale
 library.  Nothing is built at import time: :func:`load`
 builds at first use, and :func:`build` starts one ``nvcc`` per source, all
 at once.
+
+The libraries are the port's only compile that outlives a process, so
+they are its compile cache: :func:`enable_compile_cache` points the
+library directory elsewhere (a directory that several processes share),
+and :func:`cache_stats` counts ``cache_misses`` (``nvcc`` builds) and
+``cache_hits`` (first loads that find the library already on disk).
 """
 from __future__ import annotations
 
@@ -26,6 +32,45 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}
+
+
+class CompileCacheStats:
+    """Hit and miss counts of the kernel-library cache in this process."""
+
+    def __init__(self):
+        self.counts: dict[str, int] = {}
+
+    def add(self, key: str) -> None:
+        self.counts[key] = self.counts.get(key, 0) + 1
+
+    def snapshot(self) -> dict[str, int]:
+        return dict(self.counts)
+
+    @staticmethod
+    def delta(before: dict, after: dict) -> dict[str, int]:
+        return {k: after.get(k, 0) - before.get(k, 0)
+                for k in set(before) | set(after)}
+
+
+_CACHE_STATS = CompileCacheStats()
+
+
+def cache_stats() -> CompileCacheStats:
+    """The process-wide hit/miss counts."""
+    return _CACHE_STATS
+
+
+def enable_compile_cache(cache_dir) -> CompileCacheStats:
+    """Build and load the kernel libraries in ``cache_dir`` from now on.
+
+    Libraries stay named by the hash of their sources, so a directory
+    shared by several processes (or checkouts) never serves a stale one;
+    libraries this process has already loaded stay loaded.  Returns the
+    hit/miss counts.
+    """
+    global BUILD_DIR
+    BUILD_DIR = Path(cache_dir)
+    return _CACHE_STATS
 
 
 def source(name: str) -> Path:
@@ -69,6 +114,7 @@ def build(names=KERNELS) -> None:
             failed.append(f"{name}:\n{log}")
         else:
             os.replace(tmp, _library(name))
+            _CACHE_STATS.add("cache_misses")
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
 
@@ -77,6 +123,10 @@ def load(name: str) -> ctypes.CDLL:
     """The kernel's shared library, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
-        lib = _loaded[name] = ctypes.CDLL(str(_library(name)))
+        path = _library(name)
+        if path.exists():
+            _CACHE_STATS.add("cache_hits")
+        else:
+            build([name])
+        lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib

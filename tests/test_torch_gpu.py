@@ -9,7 +9,8 @@ call), segment_reduce takes bfloat16 and float16 (float32 sums, one
 rounding; the tolerance adds one step of the output's rounding), and
 fm_interaction float16; jet_gain takes a fleet's per-lane weights, and
 partition_fleet on the card equals the CPU and the reference's standalone
-runs (the golden file).
+runs (the golden file), and so does PartitionServer's response to the
+reference serve test's burst, dispatch log included.
 
 These tests import no JAX, so they run on a machine that has only torch:
 
@@ -315,3 +316,25 @@ def test_fleet_on_card_matches_cpu_and_golden(cuda, backend):
     for c, h, want in zip(card.results, cpu.results, golden):
         assert tp.member_summary(c) == tp.member_summary(h) == want
         assert c.imbalance == h.imbalance
+
+
+def test_serve_on_card_matches_golden(cuda):
+    """PartitionServer on the card (its default device): the reference
+    serve test's burst on every backend gives the reference's standalone
+    results and dispatch log (golden); parts stay on the card."""
+    import json
+
+    from repro_torch.core import partition as pa
+    from repro_torch.data import graphs as gen
+    from repro_torch.launch import partition_serve as ps
+
+    golden = tp.load_golden_serve()
+    for name in tp.serve_case_names():
+        server = ps.PartitionServer(tp.serve_config(ps, pa, name))
+        assert server.device == torch.device("cuda", 0)
+        got = tp.run_burst(server, tp.serve_burst(gen))
+        assert [tp.member_summary(r) for r in got] == \
+            golden[name]["members"], name
+        assert json.loads(json.dumps(list(server.dispatch_log))) == \
+            golden[name]["dispatch_log"], name
+        assert all(r.parts.device.type == "cuda" for r in got)

@@ -6,8 +6,11 @@ coarsen in host mode (a ``_host`` suffix on the name).  The fleet cases
 (``fleet_<backend>_k<k>_t<T>``) hold the reference fleet test's graphs
 (grids 13x13, 12x12, 8x8, and 8x8 over-padded to n_max = m_max = 1024),
 each partitioned standalone by the reference: a port fleet member must
-equal its member's summary (:func:`member_summary`).  :func:`summary`
-reduces a result to the integers the tests compare (cut, per-trial cuts
+equal its member's summary (:func:`member_summary`).  The serve cases
+(``serve_<backend>``) hold ``tests/test_serve.py``'s burst (grids 6x6, 6x5
+and 4x4 at k = 2, 2, 3 on the (64, 256) ladder, two lanes): the
+reference's standalone member summaries and its server's dispatch log.
+:func:`summary` reduces a result to the integers the tests compare (cut, per-trial cuts
 and balance, best trial, per-level stats, sha256 of the parts arrays); the
 same summaries of the JAX reference are committed as
 ``src/repro_torch/_golden/partition_small.json`` for runs on a machine
@@ -50,6 +53,11 @@ FLEET_OVERPAD = 1024                  # and its over-padded 8x8 member
 FLEET_KS = (2, 8, 33)
 FLEET_TRIALS = (1, 2)
 FLEET_CONFIG = dict(coarse_target=48, max_iter=30, patience=3)
+SERVE_BURST = (((6, 6), 2), ((6, 5), 2), ((4, 4), 3))  # (grid sides, k)
+SERVE_CONFIG = dict(k=2, coarse_target=32, max_iter=30, patience=3)
+# a window far longer than the burst's arrival span, so the whole burst
+# is one batch (two dispatches: k = 2 and k = 3) on any machine
+SERVE_SERVER = dict(ladder_n=64, ladder_m=256, window_s=0.25, lanes=2)
 
 
 def case_names(graph: str, backends=BACKENDS) -> list[str]:
@@ -94,6 +102,56 @@ def fleet_graphs(graph_module, gen_module) -> list:
     over = graph_module.build_csr_host(n, edges, ew, vw, n_max=FLEET_OVERPAD,
                                        m_max=FLEET_OVERPAD)
     return [gen_module.grid2d(a, b) for a, b in FLEET] + [over]
+
+
+def serve_case_names() -> list[str]:
+    return [f"serve_{b}" for b in BACKENDS]
+
+
+def serve_config(serve, part, name: str):
+    """The ``ServeConfig`` of a serve case, made with either package's
+    ``partition_serve`` and ``partition`` modules."""
+    return serve.ServeConfig(partition=part.PartitionConfig(
+        backend=name.split("_")[1], **SERVE_CONFIG), **SERVE_SERVER)
+
+
+def serve_burst(gen_module) -> list:
+    """The burst's (graph, k) requests, made with either package's
+    generators."""
+    return [(gen_module.grid2d(*sides), k) for sides, k in SERVE_BURST]
+
+
+def run_burst(server, burst) -> list:
+    """Submit every request of the burst at once; the responses in order."""
+    import asyncio
+
+    async def run():
+        async with server:
+            return await asyncio.gather(
+                *(server.submit(g, k=k) for g, k in burst))
+
+    return asyncio.run(run())
+
+
+def jax_serve_case(name: str) -> dict:
+    """The reference's standalone member summaries of a serve case's burst
+    and its server's dispatch log for the same burst."""
+    from dataclasses import replace
+
+    from repro.core import partition as jpa
+    from repro.data import graphs as gen
+    from repro.launch import partition_serve as jps
+
+    scfg = serve_config(jps, jpa, name)
+    burst = serve_burst(gen)
+    server = jps.PartitionServer(scfg)
+    run_burst(server, burst)
+    return {
+        "members": [member_summary(jpa.partition(g, replace(scfg.partition,
+                                                            k=k)))
+                    for g, k in burst],
+        "dispatch_log": json.loads(json.dumps(list(server.dispatch_log))),
+    }
 
 
 def member_summary(res) -> dict:
@@ -329,6 +387,11 @@ def load_golden_fleet() -> dict:
     return json.loads(GOLDEN.read_text())["fleet"]
 
 
+def load_golden_serve() -> dict:
+    """Per serve case, :func:`jax_serve_case`'s record."""
+    return json.loads(GOLDEN.read_text())["serve"]
+
+
 def jax_fleet_members(name: str) -> list:
     """The reference's standalone ``partition()`` of each fleet member."""
     from repro.core import graph as gr
@@ -339,11 +402,12 @@ def jax_fleet_members(name: str) -> list:
     return [partition(g, cfg) for g in fleet_graphs(gr, gen)]
 
 
-def _fleet_case_in_subprocess(name: str) -> list:
-    """:func:`jax_fleet_members` summaries from a process of their own: one
-    process that compiles every case's programs runs XLA's CPU compiler out
-    of memory."""
-    out = subprocess.run([sys.executable, __file__, "--fleet-case", name],
+def _case_in_subprocess(name: str):
+    """A fleet case's :func:`jax_fleet_members` summaries, or a serve
+    case's :func:`jax_serve_case`, from a process of their own: one process
+    that compiles every case's programs runs XLA's CPU compiler out of
+    memory."""
+    out = subprocess.run([sys.executable, __file__, "--case", name],
                          capture_output=True, text=True, check=True).stdout
     return json.loads(out.splitlines()[-1])
 
@@ -353,7 +417,9 @@ def write_golden() -> None:
 
     with ThreadPoolExecutor(3) as pool:
         names = fleet_case_names()
-        fleet = dict(zip(names, pool.map(_fleet_case_in_subprocess, names)))
+        fleet = dict(zip(names, pool.map(_case_in_subprocess, names)))
+        names = serve_case_names()
+        serve = dict(zip(names, pool.map(_case_in_subprocess, names)))
     cases = {name: summary(jax_result(name)) for name in all_cases()}
     GOLDEN.write_text(json.dumps({
         "about": "JAX reference summaries of the port's small partition "
@@ -366,6 +432,9 @@ def write_golden() -> None:
                         f"m_max = {FLEET_OVERPAD}",
         "fleet_config": FLEET_CONFIG,
         "fleet": fleet,
+        "serve_burst": "grid2d 6x6, 6x5 at k=2 and 4x4 at k=3; config "
+                       f"{SERVE_CONFIG}, server {SERVE_SERVER}",
+        "serve": serve,
     }, indent=1) + "\n")
 
 
@@ -396,9 +465,11 @@ def suite_parity(names) -> bool:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--suite"]:
         raise SystemExit(0 if suite_parity(sys.argv[2:]) else 1)
-    if sys.argv[1:2] == ["--fleet-case"]:
-        print(json.dumps([member_summary(r)
-                          for r in jax_fleet_members(sys.argv[2])]))
+    if sys.argv[1:2] == ["--case"]:
+        name = sys.argv[2]
+        print(json.dumps(jax_serve_case(name) if name.startswith("serve_")
+                         else [member_summary(r)
+                               for r in jax_fleet_members(name)]))
         raise SystemExit(0)
     if sys.argv[1:] != ["--write"]:
         raise SystemExit(f"usage: {sys.argv[0]} --write | --suite [name ...]")
