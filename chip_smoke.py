@@ -65,12 +65,14 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       plain version and each serve step timed with CUDA events; examples/s
       and peak memory; the two serve steps under torch.profiler (device
       busy time, idle share, the kernel's device time).
-  (k) flash_attention against plain: groups 1 and 4, D in {8, 36, 64, 128,
-      256}, causal and not, windows 0/16/512, query offsets, Sq != Skv,
-      ragged tiles, rows that see no key (exactly 0), float32 (the CUDA-core
-      kernel), bfloat16 and float16 (the tensor-core kernel): within 2e-5 +
-      2e-5 * |plain| (float32) or 1e-5 + 1e-2 * |plain| (bfloat16, float16)
-      and bitwise equal across two launches; strided (transposed) views.
+  (k) flash_attention against plain: groups 1 and 4, D = Dv in {8, 36, 64,
+      128, 256} and values of their own width, (D, Dv) in {(24, 16), (192,
+      128), (36, 8)}; causal and not, windows 0/16/512, query offsets, Sq !=
+      Skv, ragged tiles, rows that see no key (exactly 0), float32 (the
+      CUDA-core kernel), bfloat16 and float16 (the tensor-core kernel):
+      within 2e-5 + 2e-5 * |plain| (float32) or 1e-5 + 1e-2 * |plain|
+      (bfloat16, float16) and bitwise equal across two launches; strided
+      (transposed) views.
   (l) Gemma-3 1B serving at full width (bfloat16, seeded weights): prefill
       4 prompts of 4096 tokens, then 32 greedy decode steps, through
       ``repro_torch.launch.serve.generate``: 26 flash_attention launches per
@@ -113,6 +115,19 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       JAX reference's (golden); then two processes on one fresh kernel
       library directory: the first builds the serve path's kernels, the
       second builds nothing.
+  (q) DeepSeek-V2-Lite 16B serving at full width (27 layers, MLA with
+      r = 512 and q, k 192 / v 128 wide, 64 routed experts top-6 + 2 shared,
+      bfloat16; 16,000,595,968 seeded parameters, every routed expert drawn
+      on its own): prefill 4 prompts of 4096 tokens, then 32 greedy decode
+      steps, through ``repro_torch.launch.serve.generate``: 27
+      flash_attention launches per prefill (Dv != D), none on the plain
+      path; prefill logits within relative L2 max(1e-2, 2 x the SDPA
+      path's) of the plain path's; greedy tokens as in (l); times,
+      tokens/s, peak memory and the MLA cache's bytes; the share of (token,
+      layer) top-6 expert sets that differ between the two paths' prefills
+      (printed, not gated); profiles of the prefill and of 8 decode steps;
+      the kernel, its plain version and SDPA timed at the MLA layer's
+      shapes; the smoke config on the card against the CPU within 2e-4.
   The script ends by checking that no jax or repro (JAX package) module was
   imported.  ``--phases`` runs a subset, for debugging; such a run prints no
   result line.
@@ -1578,19 +1593,23 @@ def phase_flash_vs_plain(tp, dev):
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     n_cases, worst = 0, {}
+    widths = [(d, d) for d in (8, 36, 64, 128, 256)] + list(tp.FLASH_DV)
     for shape in tp.FLASH_SHAPES:
         h, hkv, sq, skv, causal, window, off = shape
-        for d in (8, 36, 64, 128, 256):
+        for d, dv in widths:
             for dtype in (torch.float32, torch.bfloat16, torch.float16):
+                # D == Dv keeps its earlier seed, so its inputs are as before
                 q, k, v = tp.qkv(2, h, hkv, sq, skv, d, dtype,
-                                 seed=sq * skv + d, device=dev)
+                                 seed=sq * skv + d + (dv != d) * dv,
+                                 device=dev, dv=dv)
                 got = ops.flash_attention(q, k, v, causal, window, off)
                 again = ops.flash_attention(q, k, v, causal, window, off)
                 want = flash_attention_ref(q, k, v, causal, window, off)
                 torch.cuda.synchronize()
-                where = f"(k) flash_attention {shape} D={d} {dtype}"
-                if not torch.equal(got, again):
-                    raise AssertionError(f"{where}: two launches differ")
+                where = f"(k) flash_attention {shape} D={d} Dv={dv} {dtype}"
+                if got.shape != want.shape or not torch.equal(got, again):
+                    raise AssertionError(f"{where}: two launches differ or "
+                                         f"shape {tuple(got.shape)}")
                 ratio = tp.flash_error_ratio(got, want)
                 dead = want.float().abs().amax(dim=-1) == 0
                 if not ratio <= 1 or not bool((got[dead] == 0).all()):
@@ -1611,7 +1630,8 @@ def phase_flash_vs_plain(tp, dev):
     print(f"(k) flash_attention on strided (transposed) bfloat16 views: "
           f"{ratio:.4f} of the tolerance")
     print(f"(k) flash_attention == plain on {n_cases} cases (groups 1 and 4, "
-          "D in {8, 36, 64, 128, 256}, causal and not, windows 0/16/512, "
+          "D = Dv in {8, 36, 64, 128, 256} and (D, Dv) in "
+          f"{set(tp.FLASH_DV)}, causal and not, windows 0/16/512, "
           "offsets, ragged tiles, rows that see no key = 0): worst "
           + ", ".join(f"{str(k_)[6:]} {v_:.4f}" for k_, v_ in worst.items())
           + " of the tolerance; bitwise equal across launches")
@@ -1623,9 +1643,10 @@ def _attention_pairs(sq: int, window: int) -> int:
     return int((np.minimum(i + 1, window) if window else i + 1).sum())
 
 
-def _flash_at_shape(tp, dev, window: int):
-    """The kernel, its plain version and SDPA at one prefill layer of
-    Gemma-3 1B (B=4, H=4, Hkv=1, S=4096, D=256, bfloat16)."""
+def _flash_at_shape(tp, dev, window: int, b=4, h=4, hkv=1, s=4096, d=256,
+                    dv=256):
+    """The kernel, its plain version and SDPA at one causal bfloat16 prefill
+    layer; the default is Gemma-3 1B's (B=4, H=4, Hkv=1, S=4096, D=Dv=256)."""
     import torch
     import torch.nn.functional as F
 
@@ -1633,11 +1654,11 @@ def _flash_at_shape(tp, dev, window: int):
     from repro_torch.kernels.flash_attention.ref import (
         attention_mask, flash_attention_ref)
 
-    b, h, hkv, s, d = 4, 4, 1, 4096, 256
     gen = torch.Generator(device=dev).manual_seed(window)
     q, k, v = (torch.randn(shape, generator=gen, device=dev)
                .to(torch.bfloat16)
-               for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+               for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, dv)))
+    gqa = h != hkv
     got = ops.flash_attention(q, k, v, True, window)
     want = flash_attention_ref(q, k, v, True, window)
     ratio = tp.flash_error_ratio(got, want)
@@ -1649,22 +1670,48 @@ def _flash_at_shape(tp, dev, window: int):
 
         def library():
             return F.scaled_dot_product_attention(q, k, v, attn_mask=allowed,
-                                                  enable_gqa=True)
+                                                  enable_gqa=gqa)
     else:
         def library():
             return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                  enable_gqa=True)
+                                                  enable_gqa=gqa)
 
     lib_err = float((library().float() - want.float()).abs().max())
     library_ms = _time_ms(library, 10)
-    nbytes = 2 * (q.numel() * 2 + k.numel() * 2)    # q, k, v in; o out
-    flops = 4 * d * _attention_pairs(s, window) * b * h
+    # q, k, v in, o out; q k^T and P V: 2 D + 2 Dv flops a visible pair
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
+    flops = (2 * d + 2 * dv) * _attention_pairs(s, window) * b * h
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bytes": nbytes, "flops": flops,
             "max_abs_err": err, "ratio": ratio, "library_err": lib_err,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
             >= flops / BF16_FLOPS_PER_S else "operations"}
+
+
+def _greedy_agreement(tag: str, res, plain) -> int:
+    """Greedy tokens of the kernel path equal the plain path's wherever the
+    plain run's top-2 margin exceeds twice the logit difference, up to a
+    row's first allowed divergence; returns the (row, step) pairs checked."""
+    import torch
+
+    tok, ptok = res["tokens"].cpu(), plain["tokens"].cpu()
+    checked = 0
+    for row in range(tok.shape[0]):
+        for t in range(tok.shape[1]):
+            diff = float((res["logits"][t][row] - plain["logits"][t][row])
+                         .abs().max())
+            top2 = torch.topk(plain["logits"][t][row], 2).values
+            margin = float(top2[0] - top2[1])
+            if tok[row, t] != ptok[row, t]:
+                if margin > 2 * diff:
+                    raise AssertionError(
+                        f"{tag} row {row} step {t}: tokens "
+                        f"{int(tok[row, t])} != {int(ptok[row, t])} at margin "
+                        f"{margin:.4g} > 2 x {diff:.4g}")
+                break
+            checked += 1
+    return checked
 
 
 def _teacher_forced(cfg, params, prompts, fed, max_len):
@@ -1736,24 +1783,8 @@ def phase_gemma(tp, dev):
         raise AssertionError(f"(l) prefill logits: kernel path vs plain "
                              f"path relative L2 {rel:.3e} > max(1e-2, 2 x "
                              f"the SDPA path's {lib_rel:.3e})")
-    # greedy tokens equal wherever the plain run's top-2 margin exceeds
-    # twice the logit difference, up to a row's first allowed divergence
-    tok, ptok = res["tokens"].cpu(), plain["tokens"].cpu()
-    checked = 0
-    for row in range(batch):
-        for t in range(steps + 1):
-            diff = float((res["logits"][t][row] - plain["logits"][t][row])
-                         .abs().max())
-            top2 = torch.topk(plain["logits"][t][row], 2).values
-            margin = float(top2[0] - top2[1])
-            if tok[row, t] != ptok[row, t]:
-                if margin > 2 * diff:
-                    raise AssertionError(
-                        f"(l) row {row} step {t}: tokens {int(tok[row, t])} "
-                        f"!= {int(ptok[row, t])} at margin {margin:.4g} > 2 x "
-                        f"{diff:.4g}")
-                break
-            checked += 1
+    checked = _greedy_agreement("(l)", res, plain)
+    tok = res["tokens"].cpu()
     prefill_s, decode_s = res["prefill_s"], res["decode_s"]
     print(f"(l) prefill {batch} x {prompt_len} tokens: {prefill_s:.4f} s "
           f"({batch * prompt_len / prefill_s:.6g} tokens/s); {steps} decode "
@@ -1807,9 +1838,7 @@ def phase_gemma(tp, dev):
     # the smoke config on the card against this machine's CPU
     smoke = arch.smoke
     p_cpu = tf.init_params(smoke, torch.Generator().manual_seed(0))
-    p_card = {"embed": p_cpu["embed"].to(dev),
-              "final_ln": p_cpu["final_ln"].to(dev),
-              "layers": {k: w.to(dev) for k, w in p_cpu["layers"].items()}}
+    p_card = tf.tree_to(p_cpu, dev)
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(0, smoke.vocab, (2, 64)))
     fed = torch.from_numpy(rng.integers(0, smoke.vocab, (8, 2)))
@@ -1841,8 +1870,215 @@ def phase_gemma(tp, dev):
     }
 
 
+# ---------------------------------------------------------------------------
+# serving: DeepSeek-V2-Lite 16B (MLA + MoE; flash_attention with Dv != D)
+# ---------------------------------------------------------------------------
+
+MOE_GROUPS = LM_GROUPS + (("sort", ("sort",)),
+                          ("gather, scatter, index", ("gather", "scatter",
+                                                      "index")))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _distinct_experts(cfg, params, gen) -> None:
+    """Every routed expert of every layer drawn anew from ``gen`` (the
+    port's ``init_params`` repeats one draw over a layer's experts, as the
+    reference's ``moe_init`` does), one layer at a time."""
+    from repro_torch.models.layers import dense_init
+
+    experts = params["layers"]["moe"]
+    d, f, e = cfg.d_model, cfg.d_expert, cfg.n_experts
+    for i in range(cfg.n_layers):
+        for name, d_in, d_out in (("w_gate", d, f), ("w_up", d, f),
+                                  ("w_down", f, d)):
+            w = experts[name][i]
+            w.copy_(dense_init(gen, d_in, d_out, w.dtype, lead=(e,)))
+
+
+def _recording(sets: list):
+    """``moe.moe_apply`` that first keeps each token's top-k expert set
+    (sorted ids, (T, K)) of the call."""
+    import torch
+
+    from repro_torch.models import moe
+
+    inner = moe.moe_apply
+
+    def recorded(params, x, *, top_k, **kw):
+        sets.append(torch.sort(moe.route(params, x, top_k)[2], -1).values)
+        return inner(params, x, top_k=top_k, **kw)
+    return recorded
+
+
+def phase_deepseek(tp, dev):
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    torch.cuda.empty_cache()
+    arch = get_arch("deepseek-v2-lite-16b")
+    cfg = arch.config
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tf.init_params(cfg, gen)
+    _distinct_experts(cfg, params, gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"(q) {n_params} parameters != param_count() "
+                             f"{cfg.param_count()}")
+    print(f"(q) deepseek-v2-lite-16b: {n_params} parameters (bfloat16 "
+          f"weights, float32 router and norms; every routed expert drawn on "
+          f"its own), made in {time.perf_counter() - t0:.1f} s")
+    batch, prompt_len, steps = 4, 4096, 32
+    max_len = prompt_len + steps
+    prompts = next(synthetic.lm_batches(cfg.vocab, batch, prompt_len, seed=0,
+                                        device=dev))["tokens"]
+
+    serve.generate(cfg, params, prompts, 1)     # warm-up: library loads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res, launches = _counted(serve.generate, cfg, params, prompts, steps,
+                             max_len, True)
+    peak = torch.cuda.max_memory_allocated()
+    if launches.get("flash_attention", 0) != cfg.n_layers:
+        raise AssertionError(f"(q) flash_attention launches {launches} != "
+                             f"{cfg.n_layers} per prefill")
+    with plain_versions():
+        plain, plain_launches = _counted(serve.generate, cfg, params,
+                                         prompts, steps, max_len, True)
+    if plain_launches.get("flash_attention", 0) != 0:
+        raise AssertionError("(q) the plain path launched the kernel")
+    # the yardstick: the same prefill with PyTorch's fused attention (Ev =
+    # 128) in place of the kernel
+    got, want = res["logits"][0], plain["logits"][0]
+    with swapped(fa_ops, "flash_attention", sdpa_attention):
+        lib_logits, _ = tf.prefill(cfg, params, prompts, max_len)
+    lib_rel = float((lib_logits - want).norm() / want.norm())
+    rel = float((got - want).norm() / want.norm())
+    if not (rel <= max(1e-2, 2 * lib_rel)
+            and bool(torch.isfinite(got).all())
+            and got.shape == (batch, cfg.vocab)):
+        raise AssertionError(f"(q) prefill logits: kernel path vs plain "
+                             f"path relative L2 {rel:.3e} > max(1e-2, 2 x "
+                             f"the SDPA path's {lib_rel:.3e})")
+    checked = _greedy_agreement("(q)", res, plain)
+    prefill_s, decode_s = res["prefill_s"], res["decode_s"]
+    print(f"(q) prefill {batch} x {prompt_len} tokens: {prefill_s:.4f} s "
+          f"({batch * prompt_len / prefill_s:.6g} tokens/s); {steps} decode "
+          f"steps: {decode_s / steps * 1e3:.4f} ms per step "
+          f"({batch * steps / decode_s:.6g} tokens/s); plain path prefill "
+          f"{plain['prefill_s']:.4f} s, decode "
+          f"{plain['decode_s'] / steps * 1e3:.4f} ms per step")
+    cache_bytes = cfg.n_layers * batch * max_len \
+        * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
+    print(f"(q) max_memory_allocated {peak} bytes (MLA cache ckv + krope "
+          f"{cache_bytes} bytes at max_len {max_len}); launches {launches}")
+    print(f"(q) prefill logits, kernel vs plain path: relative L2 {rel:.3e}, "
+          f"max |diff| {float((got - want).abs().max()):.4g}; greedy tokens "
+          f"equal at {checked} of {batch * (steps + 1)} (row, step) pairs "
+          f"checked; first tokens {res['tokens'][:, :8].tolist()}")
+    print(f"(q) prefill logits, SDPA path vs plain path (the yardstick): "
+          f"relative L2 {lib_rel:.3e}, max |diff| "
+          f"{float((lib_logits - want).abs().max()):.4g}")
+    del res, plain, lib_logits
+
+    # the routing the two prefills chose: (token, layer) top-6 sets
+    sets = {"kernel": [], "plain": []}
+    with swapped(moe, "moe_apply", _recording(sets["kernel"])):
+        tf.prefill(cfg, params, prompts, max_len)
+    with plain_versions(), \
+            swapped(moe, "moe_apply", _recording(sets["plain"])):
+        tf.prefill(cfg, params, prompts, max_len)
+    differ = sum(int((a != b).any(-1).sum())
+                 for a, b in zip(sets["kernel"], sets["plain"]))
+    total = sum(a.shape[0] for a in sets["kernel"])
+    print(f"(q) routing, kernel vs plain path prefill: {differ} of {total} "
+          f"(token, layer) top-{cfg.top_k} expert sets differ "
+          f"({differ / total:.4g}; not gated: a different set is a "
+          "different expert mix, which is where the logits part)")
+    del sets
+
+    # where the time goes: one prefill and 8 decode steps under the profiler
+    groups = phase_profile("(q) prefill", lambda: tf.prefill(
+        cfg, params, prompts, max_len), prefill_s, "prefill", MOE_GROUPS)
+    logits, cache = tf.prefill(cfg, params, prompts, max_len)
+    n_prof = min(8, steps)
+
+    def decode_steps():
+        c, t = cache, torch.argmax(logits, -1)
+        for _ in range(n_prof):
+            lg, c = tf.decode_step(cfg, params, c, t)
+            t = torch.argmax(lg, -1)
+
+    phase_profile("(q) decode", decode_steps, n_prof * decode_s / steps,
+                  f"{n_prof} decode steps", MOE_GROUPS)
+    del logits, cache, params
+    torch.cuda.empty_cache()
+
+    r = _flash_at_shape(tp, dev, 0, b=batch, h=cfg.n_heads, hkv=cfg.n_heads,
+                        s=prompt_len, d=cfg.qk_dim, dv=cfg.v_head_dim)
+    if not r["ratio"] <= 1:
+        raise AssertionError(f"(q) flash_attention at the MLA layer: "
+                             f"{r['ratio']:.3f} of its tolerance")
+    print(f"(q) flash_attention at the MLA layer ({batch}, {cfg.n_heads}, "
+          f"{prompt_len}, D {cfg.qk_dim}, Dv {cfg.v_head_dim}) bfloat16: "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"SDPA {r['library_ms']:.4f} ms (kernel/SDPA "
+          f"{r['ms'] / r['library_ms']:.3f}; |SDPA - plain| "
+          f"{r['library_err']:.3g}), bound {r['bound_ms']:.4f} ms "
+          f"({r['flops']} flops, {r['bytes']} bytes, bound by "
+          f"{r['bound_by']}); |kernel - plain| {r['max_abs_err']:.3g}")
+
+    # the smoke config (float32: the CUDA-core kernel at D 24, Dv 16) on the
+    # card against this machine's CPU, distinct experts
+    smoke = arch.smoke
+    p_cpu = tf.init_params(smoke, torch.Generator().manual_seed(0))
+    _distinct_experts(smoke, p_cpu, torch.Generator().manual_seed(1))
+    p_card = tf.tree_to(p_cpu, dev)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, smoke.vocab, (2, 64)))
+    fed = torch.from_numpy(rng.integers(0, smoke.vocab, (8, 2)))
+    cpu = _teacher_forced(smoke, p_cpu, toks, fed, 72)
+    card, smoke_launches = _counted(_teacher_forced, smoke, p_card,
+                                    toks.to(dev), fed.to(dev), 72)
+    err = max(float((a - b).abs().max()) for a, b in zip(card, cpu))
+    if smoke_launches.get("flash_attention", 0) != smoke.n_layers or not all(
+            torch.allclose(a, b, rtol=2e-4, atol=2e-4)
+            for a, b in zip(card, cpu)):
+        raise AssertionError(f"(q) smoke config: card vs CPU logits {err}, "
+                             f"launches {smoke_launches}")
+    print(f"(q) smoke config ({smoke.n_layers} layers, float32, MLA D "
+          f"{smoke.qk_dim} Dv {smoke.v_head_dim}, {smoke.n_experts} experts "
+          f"top-{smoke.top_k}): card logits == CPU logits within 2e-4 over "
+          "prefill and 8 "
+          f"decode steps (max |diff| {err:.3g})")
+    return {
+        "launches": launches["flash_attention"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "shape": {"B": batch, "H": cfg.n_heads, "Hkv": cfg.n_heads,
+                  "S": prompt_len, "D": cfg.qk_dim, "Dv": cfg.v_head_dim,
+                  "dtype": "bfloat16", "window": 0},
+        "device_ms_per_prefill": groups.get("flash_attention"),
+    }
+
+
 PHASES = ("a", "b", "b2", "b3", "c", "d", "n", "p", "e", "g", "h", "m", "o",
-          "i", "j", "k", "l")
+          "i", "j", "k", "l", "q")
 
 
 def main(argv=None) -> int:
@@ -1913,8 +2149,12 @@ def main(argv=None) -> int:
         entries.append(timed("j", phase_fm_serving, tp, dev))
     if "k" in run:
         timed("k", phase_flash_vs_plain, tp, dev)
+    flash = {"name": "flash_attention"}
     if "l" in run:
-        entries.append(timed("l", phase_gemma, tp, dev))
+        flash.update(timed("l", phase_gemma, tp, dev))
+    if "q" in run:
+        flash["mla_layer"] = timed("q", phase_deepseek, tp, dev)
+    entries.append(flash)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if leaked:

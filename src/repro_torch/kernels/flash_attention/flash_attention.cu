@@ -1,9 +1,11 @@
 // flash_attention: blocked online-softmax attention (forward) on Hopper.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash_attention.py:
-// _kernel (pallas_call in flash_attention_pallas).  For q (B, H, Sq, D) and
-// k, v (B, Hkv, Skv, D) in float32, bfloat16 or float16:
+// _kernel (pallas_call in flash_attention_pallas).  For q (B, H, Sq, D),
+// k (B, Hkv, Skv, D) and v (B, Hkv, Skv, Dv) in float32, bfloat16 or float16:
 //   o[b, h, i] = softmax_j(q[b,h,i] . k[b,g,j] / sqrt(D)) v[b,g,j]
+// (o is (B, H, Sq, Dv); Dv = D but for MLA, whose queries and keys are 192
+// wide and its values 128, as the reference's chunked_attention allows)
 // with g = h / (H / Hkv) (GQA: the kv head of query head h, never copied to
 // H heads), over the keys j that are visible to query position
 // i + q_offset: j <= i + q_offset when causal, and j > i + q_offset - window
@@ -23,7 +25,9 @@
 // Sq=Skv=4096, D=256, bfloat16, causal) 4*D flops for each of the 8,390,656
 // visible (query, key) pairs per head: 137.47 GFLOP, 0.139 ms at the bf16
 // tensor-core rate (989 TFLOP/s), against 84 MB of inputs and output
-// (0.025 ms at 3.35 TB/s).
+// (0.025 ms at 3.35 TB/s).  At DeepSeek-V2-Lite's MLA prefill layer (B=4,
+// H=Hkv=16, S=4096, D=192, Dv=128) 2*D + 2*Dv flops a pair: 343.68 GFLOP,
+// 0.348 ms, against 336 MB (0.100 ms).
 //
 // flash_kernel_tc (bfloat16, float16): FlashAttention-2 on the tensor cores.
 // Four warps own 16 query rows each.  Per kv tile of kTcBk keys:
@@ -46,11 +50,13 @@
 //     base pointer allow, 8 or 4 B otherwise, plain loads at an odd D in
 //     16-bit types) into a ring of two stages, so the next tile's copy runs
 //     while this tile is multiplied; keys past Skv are zero-filled.
-//   - Rows of the q, K and V tiles are zero-padded to a multiple of 16
-//     (D = 8 and 36 work) plus 16 bytes, so ldmatrix's eight rows fall in
-//     distinct banks.  kTcBk is 64, and 32 at D > 128, where the float32
-//     accumulator alone is 128 registers a thread: 101 KB of shared memory
-//     at D = 256, two blocks (8 warps) per SM.
+//   - Rows of the q, K and V tiles are zero-padded to DP, a multiple of 16
+//     at least max(D, Dv) (D = 8 and 36 work), plus 16 bytes, so
+//     ldmatrix's eight rows fall in distinct banks.  kTcBk is 64, and 32 at
+//     DP = 256, where the float32 accumulator alone is 128 registers a
+//     thread: 101 KB of shared memory, two blocks (8 warps) per SM.  MLA
+//     (D = 192, Dv = 128) runs the DP = 256 instantiation: its products run
+//     over the zero columns too (a 192-wide one is later speed work).
 // Against the CUDA-core kernel it replaced for these types (8.06 ms at the
 // layer above on an H100 80GB HBM3 at 700 W; this one takes 0.87 ms there):
 // products on tensor cores instead of float32 FMAs, copies that overlap the
@@ -66,8 +72,8 @@
 // threads in 16 row groups of 16 lanes; a row group owns 4 query rows.  For
 // each kv tile, K and V are copied into shared memory, each lane computes a
 // 4 x 4 block of S = (q / sqrt(D)) k^T from a float32 q tile scaled once,
-// P goes through shared memory, and each lane adds P V into its 4 x (D / 16)
-// slice of acc.  Shared memory: 214 KB at D = 256, one block per SM.
+// P goes through shared memory, and each lane adds P V into its 4 x (Dv / 16)
+// slice of acc.  Shared memory: 214 KB at D = Dv = 256, one block per SM.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -109,10 +115,10 @@ __host__ __device__ inline int k_stride(int d, int elem_bytes) {
   return words * 4 / elem_bytes;
 }
 
-__host__ __device__ inline size_t smem_bytes(int d, int elem_bytes) {
+__host__ __device__ inline size_t smem_bytes(int d, int dv, int elem_bytes) {
   return (size_t)kBq * (d + 1) * 4 + (size_t)kBq * kLdp * 4 +
          (size_t)kBk * k_stride(d, elem_bytes) * elem_bytes +
-         (size_t)kBk * d * elem_bytes;
+         (size_t)kBk * dv * elem_bytes;
 }
 
 __device__ __forceinline__ float group_max(float x) {
@@ -128,20 +134,20 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-// DPT: output columns per lane, 16 * DPT >= D.
+// DPT: output columns per lane, 16 * DPT >= Dv.
 template <typename T, int DPT>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int h, int hkv,
-             int sq, int skv, int d, int causal, int window, int q_offset,
-             float scale, int bhs) {
+             int sq, int skv, int d, int dv, int causal, int window,
+             int q_offset, float scale, int bhs) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ldq = d + 1;
   const int ldk = k_stride(d, sizeof(T));
   float* qs = reinterpret_cast<float*>(smem);        // (kBq, ldq)
   float* ps = qs + kBq * ldq;                        // (kBq, kLdp)
   T* ks = reinterpret_cast<T*>(ps + kBq * kLdp);     // (kBk, ldk)
-  T* vs = ks + kBk * ldk;                            // (kBk, d)
+  T* vs = ks + kBk * ldk;                            // (kBk, dv)
 
   // the last query tiles of a causal head do the most work: the blocks of
   // every head's last tile come first, then those of the tile before it
@@ -152,8 +158,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = (bh / h) * hkv + (bh % h) / group;
   const T* qp = q + (size_t)bh * sq * d;
   const T* kp = k + (size_t)kvh * skv * d;
-  const T* vp = v + (size_t)kvh * skv * d;
-  T* op = o + (size_t)bh * sq * d;
+  const T* vp = v + (size_t)kvh * skv * dv;
+  T* op = o + (size_t)bh * sq * dv;
   const int q0 = qt * kBq;
   const int qrows = min(kBq, sq - q0);
 
@@ -192,10 +198,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < kBk * d; idx += kThreads) {
       const int r = idx / d;
       const int c = idx - r * d;
-      const bool in = k0 + r < skv;
-      const size_t g = (size_t)(k0 + r) * d + c;
-      ks[r * ldk + c] = in ? kp[g] : from_f<T>(0.f);
-      vs[r * d + c] = in ? vp[g] : from_f<T>(0.f);
+      ks[r * ldk + c] =
+          k0 + r < skv ? kp[(size_t)(k0 + r) * d + c] : from_f<T>(0.f);
+    }
+    for (int idx = tid; idx < kBk * dv; idx += kThreads) {
+      const int r = idx / dv;
+      const int c = idx - r * dv;
+      vs[r * dv + c] =
+          k0 + r < skv ? vp[(size_t)(k0 + r) * dv + c] : from_f<T>(0.f);
     }
     __syncthreads();
 
@@ -255,7 +265,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < DPT; ++jj) {
         const int col = cl + 16 * jj;
-        const float vv = col < d ? to_f(vs[c * d + col]) : 0.f;
+        const float vv = col < dv ? to_f(vs[c * dv + col]) : 0.f;
 #pragma unroll
         for (int i = 0; i < kRows; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
       }
@@ -270,16 +280,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < DPT; ++jj) {
       const int col = cl + 16 * jj;
-      if (col < d) op[(size_t)(q0 + r) * d + col] = from_f<T>(acc[i][jj] / l_safe);
+      if (col < dv)
+        op[(size_t)(q0 + r) * dv + col] = from_f<T>(acc[i][jj] / l_safe);
     }
   }
 }
 
 template <typename T, int DPT>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int h,
-           int hkv, int sq, int skv, int d, int causal, int window,
+           int hkv, int sq, int skv, int d, int dv, int causal, int window,
            int q_offset, cudaStream_t stream) {
-  const size_t smem = smem_bytes(d, sizeof(T));
+  const size_t smem = smem_bytes(d, dv, sizeof(T));
   auto kern = flash_kernel<T, DPT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -290,28 +301,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int h,
   const float scale = (float)(1.0 / std::sqrt((double)d));
   kern<<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), h, hkv, sq, skv, d,
+      static_cast<const T*>(v), static_cast<T*>(o), h, hkv, sq, skv, d, dv,
       causal, window, q_offset, scale, b * h);
   return (int)cudaGetLastError();
 }
 
+// DPT sizes only the output columns, so the CUDA-core kernel is picked by
+// Dv (the q k^T loop runs over D at run time).
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int b,
-             int h, int hkv, int sq, int skv, int d, int causal, int window,
-             int q_offset, cudaStream_t s) {
-  if (d <= 16)
-    return launch<T, 1>(q, k, v, o, b, h, hkv, sq, skv, d, causal, window,
-                        q_offset, s);
-  if (d <= 32)
-    return launch<T, 2>(q, k, v, o, b, h, hkv, sq, skv, d, causal, window,
-                        q_offset, s);
-  if (d <= 64)
-    return launch<T, 4>(q, k, v, o, b, h, hkv, sq, skv, d, causal, window,
-                        q_offset, s);
-  if (d <= 128)
-    return launch<T, 8>(q, k, v, o, b, h, hkv, sq, skv, d, causal, window,
-                        q_offset, s);
-  return launch<T, 16>(q, k, v, o, b, h, hkv, sq, skv, d, causal, window,
+             int h, int hkv, int sq, int skv, int d, int dv, int causal,
+             int window, int q_offset, cudaStream_t s) {
+  if (dv <= 16)
+    return launch<T, 1>(q, k, v, o, b, h, hkv, sq, skv, d, dv, causal,
+                        window, q_offset, s);
+  if (dv <= 32)
+    return launch<T, 2>(q, k, v, o, b, h, hkv, sq, skv, d, dv, causal,
+                        window, q_offset, s);
+  if (dv <= 64)
+    return launch<T, 4>(q, k, v, o, b, h, hkv, sq, skv, d, dv, causal,
+                        window, q_offset, s);
+  if (dv <= 128)
+    return launch<T, 8>(q, k, v, o, b, h, hkv, sq, skv, d, dv, causal,
+                        window, q_offset, s);
+  return launch<T, 16>(q, k, v, o, b, h, hkv, sq, skv, d, dv, causal, window,
                        q_offset, s);
 }
 
@@ -498,13 +511,14 @@ constexpr size_t tc_smem_bytes() {
   return (size_t)(kTcBq + 4 * BK) * (DP + 8) * sizeof(T);
 }
 
-// DP: head dim padded to a multiple of 16; BK: keys per kv tile.
+// DP: max(D, Dv) padded to a multiple of 16; BK: keys per kv tile.
 template <typename T, int DP, int BK>
 __global__ void __launch_bounds__(kTcThreads)
 flash_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, T* __restrict__ o, int h, int hkv,
-                int sq, int skv, int d, int causal, int window, int q_offset,
-                float scale, int bhs, int vec_q, int vec_kv, int vec_o) {
+                int sq, int skv, int d, int dv, int causal, int window,
+                int q_offset, float scale, int bhs, int vec_q, int vec_k,
+                int vec_v, int vec_o) {
   constexpr int LD = DP + 8;     // row stride in elements: 16 B of padding
   constexpr int NT = BK / 8;     // n8 tiles of S per warp
   constexpr int DT = DP / 8;     // n8 tiles of the output per warp
@@ -520,8 +534,8 @@ flash_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = (bh / h) * hkv + (bh % h) / group;
   const T* qp = q + (size_t)bh * sq * d;
   const T* kp = k + (size_t)kvh * skv * d;
-  const T* vp = v + (size_t)kvh * skv * d;
-  T* op = o + (size_t)bh * sq * d;
+  const T* vp = v + (size_t)kvh * skv * dv;
+  T* op = o + (size_t)bh * sq * dv;
   const int q0 = qt * kTcBq;
   const int qrows = min(kTcBq, sq - q0);
 
@@ -541,10 +555,10 @@ flash_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
 
   load_tile<T, DP, LD>(qs, qp + (size_t)q0 * d, kTcBq, qrows, d, vec_q);
   if (kt_begin < kt_end) {
-    const size_t off = (size_t)kt_begin * BK * d;
+    const size_t row = (size_t)kt_begin * BK;
     const int valid = min(BK, skv - kt_begin * BK);
-    load_tile<T, DP, LD>(ks, kp + off, BK, valid, d, vec_kv);
-    load_tile<T, DP, LD>(vs, vp + off, BK, valid, d, vec_kv);
+    load_tile<T, DP, LD>(ks, kp + row * d, BK, valid, d, vec_k);
+    load_tile<T, DP, LD>(vs, vp + row * dv, BK, valid, dv, vec_v);
   }
   cp_async_commit();
 
@@ -568,12 +582,12 @@ flash_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int st = (kt - kt_begin) & 1;
     if (kt + 1 < kt_end) {  // the next tile's copy overlaps this tile's work
-      const size_t off = (size_t)(kt + 1) * BK * d;
+      const size_t row = (size_t)(kt + 1) * BK;
       const int valid = min(BK, skv - (kt + 1) * BK);
-      load_tile<T, DP, LD>(ks + (st ^ 1) * BK * LD, kp + off, BK, valid, d,
-                           vec_kv);
-      load_tile<T, DP, LD>(vs + (st ^ 1) * BK * LD, vp + off, BK, valid, d,
-                           vec_kv);
+      load_tile<T, DP, LD>(ks + (st ^ 1) * BK * LD, kp + row * d, BK, valid, d,
+                           vec_k);
+      load_tile<T, DP, LD>(vs + (st ^ 1) * BK * LD, vp + row * dv, BK, valid,
+                           dv, vec_v);
     }
     cp_async_commit();
     cp_async_wait<1>();  // everything but the copy just issued has landed
@@ -689,20 +703,20 @@ flash_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
           pack<T>(acc[j][2 * r] / l_safe, acc[j][2 * r + 1] / l_safe);
   }
   __syncwarp();
-  T* orow = op + (size_t)(q0 + warp * 16) * d;
+  T* orow = op + (size_t)(q0 + warp * 16) * dv;
   const int valid = min(16, qrows - warp * 16);
   switch (vec_o) {
-    case 16: store_rows<T, DP, LD, 16>(orow, stage, valid, d, lane); break;
-    case 8: store_rows<T, DP, LD, 8>(orow, stage, valid, d, lane); break;
-    case 4: store_rows<T, DP, LD, 4>(orow, stage, valid, d, lane); break;
-    default: store_rows<T, DP, LD, 2>(orow, stage, valid, d, lane); break;
+    case 16: store_rows<T, DP, LD, 16>(orow, stage, valid, dv, lane); break;
+    case 8: store_rows<T, DP, LD, 8>(orow, stage, valid, dv, lane); break;
+    case 4: store_rows<T, DP, LD, 4>(orow, stage, valid, dv, lane); break;
+    default: store_rows<T, DP, LD, 2>(orow, stage, valid, dv, lane); break;
   }
 }
 
 template <typename T, int DP, int BK>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
-              int h, int hkv, int sq, int skv, int d, int causal, int window,
-              int q_offset, cudaStream_t stream) {
+              int h, int hkv, int sq, int skv, int d, int dv, int causal,
+              int window, int q_offset, cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<T, DP, BK>();
   auto kern = flash_kernel_tc<T, DP, BK>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -713,32 +727,33 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / std::sqrt((double)d));
   const int es = (int)sizeof(T);
-  const int vec_kv = std::min(vec_bytes(k, d, es), vec_bytes(v, d, es));
   kern<<<(unsigned)blocks, kTcThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), h, hkv, sq, skv, d,
-      causal, window, q_offset, scale, b * h, vec_bytes(q, d, es), vec_kv,
-      vec_bytes(o, d, es));
+      static_cast<const T*>(v), static_cast<T*>(o), h, hkv, sq, skv, d, dv,
+      causal, window, q_offset, scale, b * h, vec_bytes(q, d, es),
+      vec_bytes(k, d, es), vec_bytes(v, dv, es), vec_bytes(o, dv, es));
   return (int)cudaGetLastError();
 }
 
+// The instantiation is picked by max(D, Dv): its tiles hold both widths.
 template <typename T>
 int dispatch_tc(const void* q, const void* k, const void* v, void* o, int b,
-                int h, int hkv, int sq, int skv, int d, int causal,
+                int h, int hkv, int sq, int skv, int d, int dv, int causal,
                 int window, int q_offset, cudaStream_t s) {
-  if (d <= 16)
-    return launch_tc<T, 16, 64>(q, k, v, o, b, h, hkv, sq, skv, d, causal,
-                                window, q_offset, s);
-  if (d <= 32)
-    return launch_tc<T, 32, 64>(q, k, v, o, b, h, hkv, sq, skv, d, causal,
-                                window, q_offset, s);
-  if (d <= 64)
-    return launch_tc<T, 64, 64>(q, k, v, o, b, h, hkv, sq, skv, d, causal,
-                                window, q_offset, s);
-  if (d <= 128)
-    return launch_tc<T, 128, 64>(q, k, v, o, b, h, hkv, sq, skv, d, causal,
-                                 window, q_offset, s);
-  return launch_tc<T, 256, 32>(q, k, v, o, b, h, hkv, sq, skv, d, causal,
+  const int w = std::max(d, dv);
+  if (w <= 16)
+    return launch_tc<T, 16, 64>(q, k, v, o, b, h, hkv, sq, skv, d, dv,
+                                causal, window, q_offset, s);
+  if (w <= 32)
+    return launch_tc<T, 32, 64>(q, k, v, o, b, h, hkv, sq, skv, d, dv,
+                                causal, window, q_offset, s);
+  if (w <= 64)
+    return launch_tc<T, 64, 64>(q, k, v, o, b, h, hkv, sq, skv, d, dv,
+                                causal, window, q_offset, s);
+  if (w <= 128)
+    return launch_tc<T, 128, 64>(q, k, v, o, b, h, hkv, sq, skv, d, dv,
+                                 causal, window, q_offset, s);
+  return launch_tc<T, 256, 32>(q, k, v, o, b, h, hkv, sq, skv, d, dv, causal,
                                window, q_offset, s);
 }
 
@@ -746,28 +761,29 @@ int dispatch_tc(const void* q, const void* k, const void* v, void* o, int b,
 
 extern "C" int flash_attention_max_head_dim() { return kMaxDim; }
 
-// q, o (b, h, sq, d); k, v (b, hkv, skv, d); all contiguous, of one type:
-// dtype 0 float32, 1 bfloat16, 2 float16.  Returns the CUDA error of the
-// launch (0 on success).
+// q (b, h, sq, d), k (b, hkv, skv, d), v (b, hkv, skv, dv), o (b, h, sq,
+// dv); all contiguous, of one type: dtype 0 float32, 1 bfloat16, 2 float16.
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int b, int h,
-                                      int hkv, int sq, int skv, int d,
+                                      int hkv, int sq, int skv, int d, int dv,
                                       int causal, int window, int q_offset,
                                       int dtype, void* stream) {
   if (b <= 0 || h <= 0 || sq <= 0) return 0;
-  if (d < 1 || d > kMaxDim || hkv < 1 || h % hkv != 0 || skv < 0)
+  if (d < 1 || d > kMaxDim || dv < 1 || dv > kMaxDim || hkv < 1 ||
+      h % hkv != 0 || skv < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch<float>(q, k, v, o, b, h, hkv, sq, skv, d, causal,
+      return dispatch<float>(q, k, v, o, b, h, hkv, sq, skv, d, dv, causal,
                              window, q_offset, s);
     case 1:
-      return dispatch_tc<__nv_bfloat16>(q, k, v, o, b, h, hkv, sq, skv, d,
+      return dispatch_tc<__nv_bfloat16>(q, k, v, o, b, h, hkv, sq, skv, d, dv,
                                         causal, window, q_offset, s);
     case 2:
-      return dispatch_tc<__half>(q, k, v, o, b, h, hkv, sq, skv, d, causal,
-                                 window, q_offset, s);
+      return dispatch_tc<__half>(q, k, v, o, b, h, hkv, sq, skv, d, dv,
+                                 causal, window, q_offset, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -6,7 +6,9 @@ Counterpart of the reference's Pallas kernel
 window and a query offset, computed in float32 over the whole (Sq, Skv)
 score matrix, with no online softmax.  It follows the Pallas kernel where
 the two differ: q is scaled by 1/sqrt(D) before the product, and a row
-whose every key is masked gives 0 (``mha_ref`` gives NaN there).
+whose every key is masked gives 0 (``mha_ref`` gives NaN there).  Values
+may have a width Dv of their own (MLA: D = 192, Dv = 128), as in the
+reference's ``chunked_attention``; the scale stays 1/sqrt(D).
 """
 from __future__ import annotations
 
@@ -28,8 +30,8 @@ def attention_mask(sq: int, skv: int, causal: bool, window: int,
 
 def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,
                         q_offset: int = 0):
-    """q (B, H, Sq, D); k, v (B, Hkv, Skv, D), H % Hkv == 0 -> (B, H, Sq, D)
-    in q's dtype.
+    """q (B, H, Sq, D); k (B, Hkv, Skv, D), v (B, Hkv, Skv, Dv), H % Hkv == 0
+    -> (B, H, Sq, Dv) in q's dtype.
 
     ``window`` > 0 limits attention to the last ``window`` kv positions
     (inclusive of self); ``q_offset`` shifts the query positions.

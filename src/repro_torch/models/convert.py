@@ -40,14 +40,10 @@ def fm_params(np_params, device=None) -> dict:
 
 
 def lm_params(np_params, device=None) -> dict:
-    """``repro.models.transformer.init_params`` output (dense GQA) ->
-    ``models/transformer`` parameters: ``embed`` (V, D), ``final_ln`` (D,)
-    and ``layers`` of stacked (L, ...) weights."""
-    layers = np_params["layers"]
-    if "moe" in layers or "w_dkv" in layers:
-        raise NotImplementedError(
-            "MLA and MoE parameters have no counterpart in the port yet "
-            "(ROADMAP.md, Queue 1)")
+    """``repro.models.transformer.init_params`` output -> ``models/transformer``
+    parameters: ``embed`` (V, D), ``final_ln`` (D,) and ``layers`` of
+    stacked (L, ...) weights: GQA or MLA attention, a dense FFN or the
+    nested ``moe`` dict (``router``, experts, ``shared``)."""
     return {"embed": to_tensor(np_params["embed"], device),
             "final_ln": to_tensor(np_params["final_ln"], device),
-            "layers": tree_to_tensors(layers, device)}
+            "layers": tree_to_tensors(np_params["layers"], device)}

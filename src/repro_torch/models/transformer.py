@@ -1,17 +1,24 @@
-"""LM transformer, dense GQA and hybrid local/global (Gemma-3 style).
+"""LM transformer family: dense GQA, hybrid local/global (Gemma-3 style),
+MLA + MoE (DeepSeek-V2 family).
 
-Counterpart of ``repro.models.transformer`` for ``attn_kind="gqa"`` without
-MoE; MLA and MoE raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
-Parameters are a dict of tensors in the reference's layout: per-layer
-weights stacked on a leading (L,) axis, ``x @ w`` with ``w`` (d_in, d_out),
-tied embeddings.  The layer scan is a Python loop.
+Counterpart of ``repro.models.transformer``'s serving path.  Parameters are
+a dict of tensors in the reference's layout: per-layer weights stacked on a
+leading (L,) axis (the MoE experts' dict too), ``x @ w`` with ``w`` (d_in,
+d_out), tied embeddings.  The layer scan is a Python loop.
 
 prefill : the flash_attention kernel (``kernels/flash_attention``) where the
           reference calls ``chunked_attention``; its plain version on the
-          CPU.  Only the last token's logits are formed.
-decode  : a KV cache per layer, attention by ``models/attention.py``
-          ``decode_attention``.  The new token's k and v are written into
-          the cache tensors in place (the reference returns new arrays).
+          CPU.  MLA's queries and keys are qk_nope + qk_rope wide and its
+          values v_head_dim wide: the kernel takes both widths.  Only the
+          last token's logits are formed.
+decode  : GQA keeps a k, v cache per layer, attention by
+          ``models/attention.py`` ``decode_attention``; MLA keeps the
+          compressed c_kv and the roped k_rope per layer and attends in the
+          c_kv space (the absorbed projection).  The new token's entries are
+          written into the cache tensors in place (the reference returns new
+          arrays).
+MoE     : ``models/moe.py`` in place of the dense FFN, in plain PyTorch as
+          the reference computes it outside any kernel.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as flash
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     apply_rope, dense_init, embed_init, rmsnorm, swiglu,
 )
@@ -110,26 +118,41 @@ def _dt(cfg: LMConfig):
     return getattr(torch, cfg.dtype)
 
 
-def _check_ported(cfg: LMConfig) -> None:
-    if cfg.attn_kind != "gqa" or cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: attn_kind={cfg.attn_kind!r}, moe={cfg.moe} — the "
-            "port has only dense GQA so far; MLA and MoE are still to be "
-            "ported (ROADMAP.md, Queue 1)")
+def tree_to(tree, device):
+    """Nested dicts of tensors (parameters, caches' tensors) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 def init_params(cfg: LMConfig, gen: torch.Generator, device=None):
     """Stacked-layer parameters, drawn on ``gen``'s device, then moved to
-    ``device`` (default: there)."""
-    _check_ported(cfg)
+    ``device`` (default: there).  MoE experts start equal within a layer,
+    as the reference's ``moe_init`` draws them."""
     device = gen.device if device is None else torch.device(device)
     dt, d, L = _dt(cfg), cfg.d_model, cfg.n_layers
-    hd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    h = cfg.n_heads
+    if cfg.attn_kind == "mla":
+        attn_shapes = (
+            ("wq", d, h * cfg.qk_dim),
+            ("w_dkv", d, cfg.kv_lora_rank + cfg.qk_rope_dim),
+            ("w_ukv", cfg.kv_lora_rank,
+             h * (cfg.qk_nope_dim + cfg.v_head_dim)),
+            ("wo", h * cfg.v_head_dim, d))
+    else:
+        hd, kvd = h * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+        attn_shapes = (("wq", d, hd), ("wk", d, kvd), ("wv", d, kvd),
+                       ("wo", hd, d))
+    ffn_shapes = () if cfg.moe else (
+        ("w_gate", d, cfg.d_ff), ("w_up", d, cfg.d_ff),
+        ("w_down", cfg.d_ff, d))
     layer = {}
-    for name, d_in, d_out in (("wq", d, hd), ("wk", d, kvd), ("wv", d, kvd),
-                              ("wo", hd, d), ("w_gate", d, cfg.d_ff),
-                              ("w_up", d, cfg.d_ff), ("w_down", cfg.d_ff, d)):
+    for name, d_in, d_out in attn_shapes + ffn_shapes:
         layer[name] = dense_init(gen, d_in, d_out, dt, lead=(L,)).to(device)
+    if cfg.moe:
+        layer["moe"] = tree_to(moe_lib.moe_init(
+            gen, d, cfg.d_expert, cfg.n_experts, cfg.n_shared, dt,
+            lead=(L,)), device)
     layer["ln1"] = torch.ones((L, d), device=device)
     layer["ln2"] = torch.ones((L, d), device=device)
     return {
@@ -139,8 +162,14 @@ def init_params(cfg: LMConfig, gen: torch.Generator, device=None):
     }
 
 
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 def _layer(params, i: int) -> dict:
-    return {name: w[i] for name, w in params["layers"].items()}
+    return _index(params["layers"], i)
 
 
 def _logits(params, x):
@@ -166,43 +195,81 @@ def _gqa_attention(cfg: LMConfig, lp, x, window: int, positions):
     return o @ lp["wo"], (k, v)
 
 
+def _mla_attention(cfg: LMConfig, lp, x, window: int, positions):
+    """x (B, S, D) -> (attention output (B, S, D), (ckv (B, S, r), k_rope
+    (B, S, rope))).  k_rope is roped once with a single head and broadcast
+    to the H heads; the cache keeps c_kv unroped and k_rope roped."""
+    b, s, _ = x.shape
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    nope, rope, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q = (x @ lp["wq"]).reshape(b, s, h, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    ckv_full = x @ lp["w_dkv"]
+    ckv, k_rope = ckv_full[..., :r], ckv_full[..., r:]
+    kv = (ckv @ lp["w_ukv"]).reshape(b, s, h, nope + dv)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    q_rope = apply_rope(q_rope.transpose(1, 2), positions[:, None],
+                        cfg.rope_theta)
+    k_rope = apply_rope(k_rope[:, None], positions[:, None], cfg.rope_theta)
+    qh = torch.cat([q_nope.transpose(1, 2), q_rope], -1)
+    kh = torch.cat([k_nope.transpose(1, 2), k_rope.expand(b, h, s, rope)],
+                   -1)
+    vh = v.transpose(1, 2).contiguous()
+    o = flash.flash_attention(qh, kh, vh, causal=True, window=window)
+    o = o.transpose(1, 2).reshape(b, s, h * dv)
+    return o @ lp["wo"], (ckv, k_rope[:, 0])
+
+
+def _ffn(cfg: LMConfig, lp, h, groups: int = 0):
+    """The FFN of one layer on h (T, D) or (B, S, D): (output, MoE aux)."""
+    if not cfg.moe:
+        return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), 0.0
+    y, aux = moe_lib.moe_apply(lp["moe"], h.reshape(-1, h.shape[-1]),
+                               top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor,
+                               groups=groups)
+    return y.reshape(h.shape), aux
+
+
 def _trunk(cfg: LMConfig, params, tokens, cache=None):
-    """Embed and run every layer over the whole sequence; the k and v of
-    layer i go to ``cache["k"][i]``, ``cache["v"][i]`` when a cache is
-    given.  Returns the last hidden states (B, S, D), before the final
-    norm."""
-    _check_ported(cfg)
+    """Embed and run every layer over the whole sequence; layer i's cache
+    entries (GQA: k, v; MLA: ckv, krope) go to ``cache[...][i]`` when a
+    cache is given.  Returns the last hidden states (B, S, D), before the
+    final norm, and the sum of the layers' MoE aux losses."""
     b, s = tokens.shape
     x = params["embed"][tokens.long()]
     positions = torch.arange(s, device=x.device).expand(b, s)
+    names = ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
+    attention = _mla_attention if cfg.attn_kind == "mla" else _gqa_attention
+    aux = 0.0
     for i, window in enumerate(cfg.window_pattern().tolist()):
         lp = _layer(params, i)
-        o, (k, v) = _gqa_attention(cfg, lp, rmsnorm(x, lp["ln1"]), window,
-                                   positions)
+        o, kv = attention(cfg, lp, rmsnorm(x, lp["ln1"]), window, positions)
         x = x + o
         if cache is not None:
-            cache["k"][i, :, :, :s] = k
-            cache["v"][i, :, :, :s] = v
-        x = x + swiglu(rmsnorm(x, lp["ln2"]), lp["w_gate"], lp["w_up"],
-                       lp["w_down"])
-    return x
+            for name, t in zip(names, kv):
+                cache[name][i, ..., :s, :] = t
+        y, a = _ffn(cfg, lp, rmsnorm(x, lp["ln2"]), cfg.moe_groups)
+        x = x + y
+        aux = aux + a
+    return x, aux
 
 
 def forward(cfg: LMConfig, params, tokens):
     """tokens (B, S) -> (logits (B, S, V) float32, aux_loss)."""
-    x = _trunk(cfg, params, tokens)
-    return _logits(params, rmsnorm(x, params["final_ln"])), 0.0
+    x, aux = _trunk(cfg, params, tokens)
+    return _logits(params, rmsnorm(x, params["final_ln"])), aux
 
 
 def prefill(cfg: LMConfig, params, tokens, max_len: int | None = None):
-    """Prefill pass: (last-token logits (B, V), KV cache at len S).
+    """Prefill pass: (last-token logits (B, V), cache at len S).
 
     Never forms the (B, S, V) logits.  The cache holds ``max_len`` (default
     S) positions per layer.
     """
     b, s = tokens.shape
     cache = init_cache(cfg, b, max_len or s, device=tokens.device)
-    x = _trunk(cfg, params, tokens, cache)
+    x, _ = _trunk(cfg, params, tokens, cache)
     cache["len"] = s
     return _logits(params, rmsnorm(x[:, -1], params["final_ln"])), cache
 
@@ -212,11 +279,21 @@ def prefill(cfg: LMConfig, params, tokens, max_len: int | None = None):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None):
-    _check_ported(cfg)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    """GQA: ``k``, ``v`` (L, B, Hkv, max_len, Dh); MLA: ``ckv`` (L, B,
+    max_len, r) and ``krope`` (L, B, max_len, rope); ``len`` 0."""
+    dt, L = _dt(cfg), cfg.n_layers
+    if cfg.attn_kind == "mla":
+        return {
+            "ckv": torch.zeros((L, batch, max_len, cfg.kv_lora_rank),
+                               dtype=dt, device=device),
+            "krope": torch.zeros((L, batch, max_len, cfg.qk_rope_dim),
+                                 dtype=dt, device=device),
+            "len": 0,
+        }
+    shape = (L, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     return {
-        "k": torch.zeros(shape, dtype=_dt(cfg), device=device),
-        "v": torch.zeros(shape, dtype=_dt(cfg), device=device),
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
         "len": 0,
     }
 
@@ -235,27 +312,74 @@ def _gqa_decode_layer(cfg: LMConfig, lp, h, kc, vc, pos: int, window: int):
     kc[:, :, pos] = k[:, :, 0]
     vc[:, :, pos] = v[:, :, 0]
     o = attn.decode_attention(q, kc, vc, pos + 1, window=window)
-    return o.reshape(b, hds * dh) @ lp["wo"], kc, vc
+    return o.reshape(b, hds * dh) @ lp["wo"]
+
+
+def _mla_decode_layer(cfg: LMConfig, lp, h, ckv_c, krope_c, pos: int):
+    """Absorbed-projection MLA decode for one new token at ``pos``: W_uk is
+    folded into the query and W_uv applied after attention, so attention
+    runs over the compressed cache ckv (B, S, r) and krope (B, S, rope),
+    into which the new entries are written in place.
+
+    The reference's products take 16-bit operands with float32 sums; here
+    the same tensors are rounded to the same types (q_abs and p to ckv's,
+    q_rope to krope's, o_c to W_uv's) and multiplied in float32.
+    """
+    b = h.shape[0]
+    hds, r = cfg.n_heads, cfg.kv_lora_rank
+    nope, rope, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q = (h @ lp["wq"]).reshape(b, hds, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    posb = torch.full((b, 1), pos, device=h.device)
+    q_rope = apply_rope(q_rope[:, :, None], posb[:, None],
+                        cfg.rope_theta)[:, :, 0]
+    new = h @ lp["w_dkv"]
+    krope_new = apply_rope(new[:, None, None, r:], posb[:, None],
+                           cfg.rope_theta)[:, 0, 0]
+    ckv_c[:, pos] = new[:, :r]
+    krope_c[:, pos] = krope_new
+    w_ukv = lp["w_ukv"].reshape(r, hds, nope + dv)
+    w_uk, w_uv = w_ukv[..., :nope], w_ukv[..., nope:]
+    q_abs = torch.einsum("bhn,rhn->bhr", q_nope.float(), w_uk.float())
+    scale = 1.0 / ((nope + rope) ** 0.5)
+    ckv = ckv_c.float()
+    s_c = torch.einsum("bhr,bsr->bhs", q_abs.to(ckv_c.dtype).float(),
+                       ckv) * scale
+    s_r = torch.einsum("bhr,bsr->bhs", q_rope.to(krope_c.dtype).float(),
+                       krope_c.float()) * scale
+    s = s_c + s_r
+    mask = torch.arange(ckv_c.shape[1], device=h.device) > pos
+    p = torch.softmax(s.masked_fill(mask, float("-inf")), dim=-1)
+    o_c = torch.einsum("bhs,bsr->bhr", p.to(ckv_c.dtype).float(), ckv)
+    o = torch.einsum("bhr,rhv->bhv", o_c.to(w_uv.dtype).float(),
+                     w_uv.float())
+    return o.reshape(b, hds * dv).to(h.dtype) @ lp["wo"]
 
 
 def decode_step(cfg: LMConfig, params, cache, tokens):
     """One greedy decode step. tokens (B,) -> (logits (B, V), cache).
 
-    The returned cache shares the k, v tensors of ``cache``, which hold the
-    new token's entries at position ``cache["len"]``.
+    The returned cache shares the tensors of ``cache``, which hold the new
+    token's entries at position ``cache["len"]``.
     """
-    _check_ported(cfg)
     pos = int(cache["len"])
-    if pos >= cache["k"].shape[3]:
-        raise ValueError(f"the cache is full: {pos} of "
-                         f"{cache['k'].shape[3]} positions used")
+    mla = cfg.attn_kind == "mla"
+    names = ("ckv", "krope") if mla else ("k", "v")
+    max_len = cache[names[0]].shape[2 if mla else 3]
+    if pos >= max_len:
+        raise ValueError(f"the cache is full: {pos} of {max_len} positions "
+                         "used")
     x = params["embed"][tokens.long()]
     for i, window in enumerate(cfg.window_pattern().tolist()):
         lp = _layer(params, i)
-        o, _, _ = _gqa_decode_layer(cfg, lp, rmsnorm(x, lp["ln1"]),
-                                    cache["k"][i], cache["v"][i], pos, window)
+        h = rmsnorm(x, lp["ln1"])
+        if mla:
+            o = _mla_decode_layer(cfg, lp, h, cache["ckv"][i],
+                                  cache["krope"][i], pos)
+        else:
+            o = _gqa_decode_layer(cfg, lp, h, cache["k"][i], cache["v"][i],
+                                  pos, window)
         x = x + o
-        x = x + swiglu(rmsnorm(x, lp["ln2"]), lp["w_gate"], lp["w_up"],
-                       lp["w_down"])
+        x = x + _ffn(cfg, lp, rmsnorm(x, lp["ln2"]))[0]
     logits = _logits(params, rmsnorm(x, params["final_ln"]))
-    return logits, {"k": cache["k"], "v": cache["v"], "len": pos + 1}
+    return logits, {**{n: cache[n] for n in names}, "len": pos + 1}

@@ -6,7 +6,9 @@ Inputs are made with numpy from a seed and handed to both packages.  The
 cases are those of ``tests/test_kernel_flash_attention.py`` (MHA, MQA, GQA
 4:1, Sq != Skv with ``q_offset``, windows 16/64/100, bfloat16, Sq = 1);
 each is held against the reference's Pallas kernel in interpret mode and
-against its oracle ``mha_ref``.  Tolerances: rtol = atol = 2e-5 in float32
+against its oracle ``mha_ref``.  Values with a width of their own (MLA's
+D = 192, Dv = 128) are held against the reference's ``chunked_attention``,
+which takes them.  Tolerances: rtol = atol = 2e-5 in float32
 (the reference test's; the softmax runs in another order), and 1e-2 in
 bfloat16, one bfloat16 step at |o| <= 2 (both packages compute in float32
 and round the output once).  Rows whose every key is masked are compared
@@ -144,3 +146,33 @@ def test_wrapper_on_cpu_takes_plain_version_and_checks_inputs():
         ops.flash_attention(q[0], k, v)
     with pytest.raises(TypeError):
         ops.flash_attention(q.double(), k, v)
+
+
+@pytest.mark.parametrize("case", [
+    # (h, hkv, sq, skv, d, dv, causal, window, q_offset)
+    (4, 4, 64, 64, 192, 128, True, 0, 0),      # MLA's widths
+    (4, 2, 32, 96, 24, 16, True, 16, 64),      # GQA, a window, an offset
+])
+def test_plain_with_value_width_matches_chunked(case):
+    h, hkv, sq, skv, d, dv, causal, window, off = case
+    q, k, _ = _qkv(2, h, hkv, sq, skv, d, seed=d + dv)
+    v = np.random.default_rng(dv).standard_normal(
+        (2, hkv, skv, dv)).astype(np.float32)
+    want = jattn.chunked_attention(*map(jnp.asarray, (q, k, v)),
+                                   causal=causal, window=window,
+                                   q_offset=off, chunk=32)
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              causal=causal, window=window, q_offset=off)
+    assert got.shape == (2, h, sq, dv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    mine = attn.chunked_attention(*map(torch.from_numpy, (q, k, v)),
+                                  causal=causal, window=window, q_offset=off,
+                                  chunk=32)
+    np.testing.assert_allclose(got.numpy(), mine.numpy(), rtol=2e-5,
+                               atol=2e-5)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    with pytest.raises(ValueError, match="Dv"):
+        ops.flash_attention(tq, tk, torch.zeros((2, hkv, skv, 257)))
+    with pytest.raises(ValueError, match="Dv"):
+        ops.flash_attention(tq, tk, tv[:, :, :-1])

@@ -1,8 +1,8 @@
 """The port on a CUDA card: the jet_gain, segment_reduce, fm_interaction
 and flash_attention kernels against their plain versions, partition()
 against the CPU run, the committed golden results and, for the sorted
-backend, the dense backend, and the two serving models against their CPU
-runs.
+backend, the dense backend, and the serving models (FM, Gemma-3 1B and
+DeepSeek-V2-Lite's MLA + MoE) against their CPU runs.
 
 Wrapper contracts: every wrapper takes strided views (one launch per
 call), segment_reduce takes bfloat16 and float16 (float32 sums, one
@@ -191,6 +191,29 @@ def test_flash_attention_matches_plain(cuda, shape, d, dtype):
     assert bool((got[dead] == 0).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d_dv", tp.FLASH_DV)
+@pytest.mark.parametrize("shape", tp.FLASH_SHAPES)
+def test_flash_attention_value_width_matches_plain(cuda, shape, d_dv, dtype):
+    h, hkv, sq, skv, causal, window, off = shape
+    d, dv = d_dv
+    q, k, v = tp.qkv(2, h, hkv, sq, skv, d, dtype, seed=sq + skv + dv,
+                     device=cuda, dv=dv)
+    want = flash_attention_ref(q, k, v, causal, window, off)
+    before = kernels.launch_counts["flash_attention"]
+    got = fa_ops.flash_attention(q, k, v, causal, window, off)
+    again = fa_ops.flash_attention(q, k, v, causal, window, off)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["flash_attention"] == before + 2
+    assert got.shape == (2, h, sq, dv)
+    assert got.dtype == dtype and torch.equal(got, again)
+    assert tp.flash_error_ratio(got, want) <= 1
+    # rows that see no key are exactly 0, as in the Pallas kernel
+    dead = want.float().abs().amax(dim=-1) == 0
+    assert bool((got[dead] == 0).all())
+
+
 def test_fm_serving_on_card_matches_cpu(cuda):
     from repro_torch.configs import get_arch
     from repro_torch.launch import steps
@@ -217,8 +240,7 @@ def test_lm_serving_on_card_matches_cpu(cuda):
 
     cfg = get_arch("gemma3-1b").smoke
     params = tf.init_params(cfg, torch.Generator().manual_seed(0))
-    on_card = {k: v.to(cuda) for k, v in params.items() if k != "layers"}
-    on_card["layers"] = {k: v.to(cuda) for k, v in params["layers"].items()}
+    on_card = tf.tree_to(params, cuda)
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))
     fed = torch.from_numpy(rng.integers(0, cfg.vocab, (6, 2)))
@@ -234,6 +256,42 @@ def test_lm_serving_on_card_matches_cpu(cuda):
     assert kernels.launch_counts["flash_attention"] == cfg.n_layers
     for got, w in zip(out, want):
         np.testing.assert_allclose(got.cpu().numpy(), w.numpy(), rtol=2e-4,
+                                   atol=2e-4)
+
+
+def test_moe_serving_on_card_matches_cpu(cuda):
+    """DeepSeek-V2-Lite's smoke config (MLA + MoE, float32; its value width
+    differs from its query width) with distinct experts: prefill, the
+    compressed cache and decode on the card against the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+
+    cfg = get_arch("deepseek-v2-lite-16b").smoke
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    for w in params["layers"]["moe"].values():
+        if isinstance(w, torch.Tensor) and w.dim() == 4:   # routed experts
+            w.copy_(torch.rand(w.shape, generator=gen) * 0.3 - 0.15)
+    on_card = tf.tree_to(params, cuda)
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))
+    fed = torch.from_numpy(rng.integers(0, cfg.vocab, (6, 2)))
+    kernels.reset_launch_counts()
+    for dev, p in (("cpu", params), (cuda, on_card)):
+        logits, cache = tf.prefill(cfg, p, prompts.to(dev), max_len=46)
+        out = [logits]
+        for t in fed:
+            logits, cache = tf.decode_step(cfg, p, cache, t.to(dev))
+            out.append(logits)
+        if dev == "cpu":
+            want, want_cache = out, cache
+    assert kernels.launch_counts["flash_attention"] == cfg.n_layers
+    for got, w in zip(out, want):
+        np.testing.assert_allclose(got.cpu().numpy(), w.numpy(), rtol=2e-4,
+                                   atol=2e-4)
+    for key in ("ckv", "krope"):
+        np.testing.assert_allclose(cache[key].cpu().numpy(),
+                                   want_cache[key].numpy(), rtol=2e-4,
                                    atol=2e-4)
 
 

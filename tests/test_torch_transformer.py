@@ -202,17 +202,3 @@ def test_serve_cells_on_cpu():
         steps.build_cell(arch, "train_4k", device="cpu", smoke=True,
                          params=params)
 
-
-def test_mla_and_moe_are_not_ported_yet():
-    for kw in (dict(attn_kind="mla", kv_lora_rank=16),
-               dict(moe=True, n_experts=4, top_k=2, d_expert=8)):
-        cfg = tf.LMConfig(n_layers=1, d_model=16, dtype="float32", **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tf.init_params(cfg, torch.Generator())
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tf.init_cache(cfg, 1, 4)
-        jp = jtf.init_params(jtf.LMConfig(n_layers=1, d_model=16,
-                                          dtype="float32", **kw),
-                             jax.random.key(0))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            convert.lm_params(jax.tree.map(np.asarray, jp))

@@ -367,15 +367,20 @@ FLASH_SHAPES = (
     (4, 4, 64, 70, False, 16, 80),
     (4, 1, 1, 1000, True, 512, 999),
 )
+# (D, Dv): values of a width of their own, as MLA's (192, 128); 36 and 8
+# are no multiple of 16, so the tiles' zero padding differs between the two
+FLASH_DV = ((24, 16), (192, 128), (36, 8))
 
 
-def qkv(b, h, hkv, sq, skv, d, dtype, seed: int, device):
-    """Random q (b, h, sq, d) and k, v (b, hkv, skv, d) made on ``device``."""
+def qkv(b, h, hkv, sq, skv, d, dtype, seed: int, device, dv=None):
+    """Random q (b, h, sq, d), k (b, hkv, skv, d) and v (b, hkv, skv, dv)
+    (dv defaults to d) made on ``device``."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(seed)
     return [torch.randn(shape, generator=gen, device=device).to(dtype)
-            for shape in ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))]
+            for shape in ((b, h, sq, d), (b, hkv, skv, d),
+                          (b, hkv, skv, dv or d))]
 
 
 def load_golden() -> dict:
