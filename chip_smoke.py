@@ -48,9 +48,10 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       segment_reduce launched as often as the loop's queries need; the
       kernel, its plain version and index_add_ timed at the finest level's
       shapes; the top device operations and the sort's share of them; the
-      kernel timed at every shape a partition() gives it (the sum of
-      launches x time); and a record at F = 128, M = 2^20 (runs of about 8
-      rows) against plain and index_add_.
+      kernel timed at every shape the timed partition() gave it (inputs
+      kept on the host during that run; the sum of launches x time); and a
+      record at F = 128, M = 2^20 (runs of about 8 rows) against plain and
+      index_add_.
   (h) power-law graph: rmat scale 20, edge factor 8, k=64, T=4, sorted
       against dense: equal parts; the time and peak memory of each, and
       the padded degree and state bytes that ell would need there.
@@ -128,6 +129,34 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       (printed, not gated); profiles of the prefill and of 8 decode steps;
       the kernel, its plain version and SDPA timed at the MLA layer's
       shapes; the smoke config on the card against the CPU within 2e-4.
+  (r) MeshGraphNet training on a Jet-partitioned mesh, the GNN training
+      path at full width: ``mesh_batch(512, 512)`` (262,144 nodes,
+      1,568,770 directed edges) and the published config (15 blocks,
+      d_hidden 128, 2-layer MLPs, float32).  partition() on the card (k=8,
+      lam=0.05, ell: jet_gain runs), the Jet and naive device plans (local
+      edges, halo, bytes per layer), the batch reordered into the Jet
+      plan's device blocks (its loss equals the input order's within
+      1e-5); step 1 on the kernel and plain paths (loss within 1e-5
+      relative, gradients within relative L2 1e-4) and twice on the kernel
+      path (bit for bit); segment_reduce launched 4 x 15 times a step
+      (``gnn_segment_sums``); 5 AdamW steps through ``train/loop.run`` on
+      the kernel path and 2 on the plain path (losses within 1e-5); step
+      time, peak memory (20-30 GB: every block's saved input and one
+      recomputed block); the step under
+      torch.profiler (idle share, top operations, no index_add, scatter_add
+      or index_put operation or kernel); the kernel, its plain version and
+      index_add_ at the step's shape (M = 1,568,770, F = 128).
+  (s) the other GNNs at their published configs, 3 AdamW steps each on the
+      kernel and plain paths (losses within 1e-5), launches as counted,
+      step 1 bit for bit across two runs: graphsage-reddit on minibatch_lg
+      (1024 seeds sampled with fanouts (15, 10) from a planted-partition
+      graph of Reddit's 232,965 nodes at degree 50, 602 random features,
+      196,608 pad nodes, 262,144 pad edges), schnet and nequip on 128
+      molecules of 30 atoms, 64 edges each; NequIP's energies under a
+      rotation and a translation (rtol = atol = 1e-4); a SchNet run killed
+      at step 2 and resumed equals a whole run bit for bit;
+      ``launch/train.main --arch meshgraphnet`` on the card; each smoke
+      config's loss and gradients on the card within 2e-4 of the CPU's.
   The script ends by checking that no jax or repro (JAX package) module was
   imported.  ``--phases`` runs a subset, for debugging; such a run prints no
   result line.
@@ -140,6 +169,7 @@ Exits nonzero, with no result line, when any phase fails or there is no card.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -150,6 +180,24 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+
+
+def gnn_segment_sums(arch_id: str, cfg) -> int:
+    """segment_reduce calls in one train step of a GNN, counted from the
+    code (``repro_torch/models/gnn``): every scatter_sum forward, again in
+    each block's checkpoint recompute, and one per gather_nodes backward
+    (none where the gathered input needs no gradient: a GraphSAGE layer 0's
+    input features, NequIP's zero V and T in layer 0); the species lookups'
+    backward and the per-graph energy sum add one each."""
+    if arch_id == "meshgraphnet":  # 1 scatter x 2 + hs, hr backward
+        return 4 * cfg.n_layers
+    if arch_id == "graphsage-reddit":  # no checkpoint in the reference
+        return 2 * cfg.n_layers - 1
+    if arch_id == "schnet":  # 1 scatter x 2 + 1 gather backward
+        return 3 * cfg.n_interactions + 2
+    if arch_id == "nequip":  # 3 scatters x 2 + s_j, V_j, T_j backward
+        return 9 * cfg.n_layers - 2 + 2
+    raise ValueError(arch_id)
 
 
 def nvidia_smi() -> str:
@@ -597,12 +645,14 @@ FM_GROUPS = (("fm_interaction", ("fm_kernel",)),)
 
 
 def phase_profile(tag: str, run, wall_s: float, what: str = "partition()",
-                  groups=PARTITION_GROUPS) -> dict[str, float]:
+                  groups=PARTITION_GROUPS, keys: list | None = None
+                  ) -> dict[str, float]:
     """``run()`` once more under torch.profiler: device busy time against
     ``wall_s``, the unprofiled run's wall time, the kernels that take the
     most device time, and the share of each group of kernel names.  Returns
     each group's device time in ms, and its launches under "<group> calls"
-    (empty if the profiler saw none)."""
+    (empty if the profiler saw none); ``keys``, if given, receives the name
+    of every operation and kernel the profiler saw."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -611,8 +661,10 @@ def phase_profile(tag: str, run, wall_s: float, what: str = "partition()",
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    if keys is not None:
+        keys.extend(e.key for e in events)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     if not kernels:
         print(f"{tag} the profiler saw no device time: busy share not "
               "measured")
@@ -670,8 +722,12 @@ def phase_sorted_full_width(tp, dev, g, cfg_ell, res_ell):
 
     cfg = dataclasses.replace(cfg_ell, backend="sorted")
     calls, restore = _count_queries()
+    first, by_shape = {}, {}
     try:
-        res, launches, peak = _run(g, cfg)
+        with swapped(ops, "segment_sum_sorted",
+                     _recording_shapes(ops.segment_sum_sorted, first,
+                                       by_shape)):
+            res, launches, peak = _run(g, cfg)
     finally:
         restore()
     if tp.summary(res) != tp.summary(res_ell) or \
@@ -756,11 +812,14 @@ def phase_sorted_full_width(tp, dev, g, cfg_ell, res_ell):
     for what, args in (("run-weight", (data, ids, s)),
                        ("conn_self", (data2, ids2, s2))):
         _segment_kernels(what, lambda a=args: ops.segment_sum_sorted(*a))
+    t_prof = time.perf_counter()
     groups = phase_profile("(g)", lambda: partition(g, cfg),
                            res.times["total_s"])
+    print(f"(g) the profiled partition() and its report took "
+          f"{time.perf_counter() - t_prof:.1f} s")
     print(f"(g) segment_reduce device time per partition(): "
           f"{groups.get('segment_reduce', 'not measured')} ms (the profile)")
-    _segment_levels(g, cfg)
+    _segment_levels(first, by_shape)
     _segment_wide(dev)
     return {
         "name": "segment_reduce", "route": "cuda",
@@ -807,38 +866,41 @@ def _segment_kernels(what: str, call, reps: int = 20) -> None:
                       or "not measured"))
 
 
-def _segment_levels(g, cfg) -> None:
-    """One sorted partition() more, keeping the first segment_reduce inputs
-    of each shape (M, F, S): the kernel timed at each shape, beside its
-    launches there and its bound."""
-    from collections import Counter
-
-    from repro_torch.core.partition import partition
-    from repro_torch.kernels.segment_reduce import ops
-
-    first, launches = {}, Counter()
-    kernel = ops.segment_sum_sorted
+def _recording_shapes(kernel, first: dict, launches: dict):
+    """``kernel`` that also keeps, per input shape (M, F, S), its launches
+    and a host copy of its first inputs (a copy on the host, so the run's
+    peak device memory stays its own)."""
 
     def keep(data, seg_ids, num_segments):
         key = (*data.shape, num_segments)
-        launches[key] += 1
+        launches[key] = launches.get(key, 0) + 1
         if key not in first:
-            first[key] = (data.clone(), seg_ids.clone(), num_segments)
+            first[key] = (data.cpu(), seg_ids.cpu())
         return kernel(data, seg_ids, num_segments)
 
-    with swapped(ops, "segment_sum_sorted", keep):
-        partition(g, cfg)
+    return keep
+
+
+def _segment_levels(first: dict, launches: dict) -> None:
+    """The kernel timed at each shape (M, F, S) that (g)'s timed
+    partition() gave it, on the inputs recorded there, beside its launches
+    there and its bound."""
+    import torch
+
+    from repro_torch.kernels.segment_reduce import ops
+
     total = 0.0
     for key in sorted(first, key=lambda k_: -k_[0]):
-        ins = first[key]
-        ms = _time_ms(lambda ins=ins: kernel(*ins), 20)
-        total += launches[key] * ms
+        data, seg = (x.to("cuda") for x in first.pop(key))
         m, f, s = key
+        ms = _time_ms(lambda: ops.segment_sum_sorted(data, seg, s), 20)
+        total += launches[key] * ms
         nbytes = (m + m * f + s * f) * 4
         print(f"(g) segment_reduce at M, F, S = {key}: {launches[key]} "
               f"launches, {ms:.4f} ms each, bound "
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
-    del first
+        del data, seg
+    torch.cuda.empty_cache()
     print(f"(g) segment_reduce, the sum of launches x time over the shapes: "
           f"{total:.2f} ms per partition()")
 
@@ -2077,8 +2139,486 @@ def phase_deepseek(tp, dev):
     }
 
 
+# Kernel path against plain path in the GNN phases.  The two differ only in
+# the order of each segment's float32 sum (a few ulps a sum); through 15
+# residual blocks and a mean over 10^5-10^6 terms that stays near 1e-6 of
+# the loss, and gradients, whose small elements move more, near 1e-5.
+GNN_LOSS_RTOL = 1e-5  # the loss at every step
+GNN_GRAD_RL2 = 1e-4   # step-1 gradients, relative L2 over all parameters
+SCATTER_NAMES = ("index_add", "scatter_add", "index_put", "indexfunc",
+                 "indexing_backward", "embedding_dense_backward")
+GNN_GROUPS = (("segment_reduce", ("splits_pass", "tiles_pass",
+                                  "carry_pass")),
+              ("matrix product", ("gemm", "gemv", "cutlass", "nvjet",
+                                  "xmma")),
+              ("row gathers (index_select)", ("gather_kernel",
+                                              "indexselect")),
+              ("concatenation", ("catarray",)))
+
+
+@contextlib.contextmanager
+def plain_segment_sums():
+    """Inside, the GNNs' sums take segment_reduce's plain version on the
+    card (``index_add_``): the plain path the kernel path is held to."""
+    from repro_torch.kernels.segment_reduce import ops
+    from repro_torch.kernels.segment_reduce.ref import segment_sum_sorted_ref
+
+    with swapped(ops, "segment_sum_sorted", segment_sum_sorted_ref):
+        yield
+
+
+def _rel_l2(got, want) -> float:
+    """Relative L2 distance of two trees of tensors, in float64."""
+    from repro_torch import tree
+
+    a, b = tree.leaves(got), tree.leaves(want)
+    num = sum(float(((x.double() - y.double()) ** 2).sum())
+              for x, y in zip(a, b))
+    return (num / sum(float((y.double() ** 2).sum()) for y in b)) ** 0.5
+
+
+def _equal(x, y) -> bool:
+    import torch
+
+    return x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+
+
+def _bitwise(a, b) -> bool:
+    """Two trees of tensors equal bit for bit."""
+    from repro_torch import tree
+
+    la, lb = tree.leaves(a), tree.leaves(b)
+    return len(la) == len(lb) and all(map(_equal, la, lb))
+
+
+def _close(a: float, b: float, rtol: float) -> bool:
+    return abs(a - b) <= rtol * abs(b)
+
+
+def phase_gnn_training(tp, dev):
+    """(r) MeshGraphNet training on a Jet-partitioned mesh (the main
+    path of GNN training)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.core.graph import build_csr_host
+    from repro_torch.core.partition import PartitionConfig
+    from repro_torch.data import synthetic
+    from repro_torch.dist import partition_aware as pa
+    from repro_torch.kernels.segment_reduce import ops
+    from repro_torch.kernels.segment_reduce.ref import segment_sum_sorted_ref
+    from repro_torch.models.gnn import common, meshgraphnet
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    cfg = get_arch("meshgraphnet").config
+    t0 = time.perf_counter()
+    data = synthetic.mesh_batch(512, 512, seed=0, device=dev)
+    graph = data["graph"]
+    n, e = graph.node_feat.shape[0], graph.senders.shape[0]
+    g = build_csr_host(n, torch.stack([graph.senders, graph.receivers],
+                                      1).cpu().numpy())
+    print(f"(r) mesh_batch(512, 512): N = {n} nodes, E = {e} directed edges "
+          f"(host graph m = {int(g.m)}; made in "
+          f"{time.perf_counter() - t0:.1f} s); MeshGraphNet {cfg.n_layers} "
+          f"blocks, d_hidden {cfg.d_hidden}, {cfg.mlp_layers}-layer MLPs, "
+          f"{cfg.param_count()} parameters")
+
+    # 1-2. the Jet partition on the card, and the device layout it plans
+    k = 8
+    pcfg = PartitionConfig(k=k, lam=0.05, backend="ell")
+    res, launches, _ = _run(g, pcfg)
+    parts = res.parts.cpu().numpy()[:n]
+    sizes = np.bincount(parts, minlength=k)
+    if not res.balanced or sizes.max() > int(1.05 * n / k) or \
+            launches.get("jet_gain", 0) == 0:
+        raise AssertionError(f"(r) partition: balanced {res.balanced}, "
+                             f"sizes {sizes.tolist()}, launches {launches}")
+    plan, naive = pa.plan_from_partition(g, res.parts, k), pa.naive_plan(g, k)
+    print(f"(r) partition() k={k} lam=0.05 ell on the card: cut {res.cut}, "
+          f"imbalance {res.imbalance:.6f}, {res.times['total_s']:.3f} s, "
+          f"jet_gain {launches['jet_gain']} launches")
+    for name, p in (("naive", naive), ("jet", plan)):
+        cb = pa.comm_bytes_per_layer(p, cfg.d_hidden)
+        print(f"(r) {name} plan: local edges {p.local_edge_frac:.4f}, halo "
+              f"{p.halo_fraction:.4f}, per layer at d {cfg.d_hidden}: "
+              f"all-gather {cb['naive_allgather']} B, halo "
+              f"{cb['partition_halo']} B ({cb['reduction']:.1f}x)")
+
+    # 3. the batch in the plan's device-block order
+    perm = torch.from_numpy(plan.perm).to(dev)
+    e_new = torch.from_numpy(plan.edges_new.astype(np.int32)).to(dev)
+    batch = {"graph": common.with_plan(graph._replace(
+        node_feat=graph.node_feat[perm], pos=graph.pos[perm],
+        senders=e_new[:, 0].contiguous(), receivers=e_new[:, 1].contiguous(),
+        graph_id=graph.graph_id[perm], plan=None)),
+        "target": data["target"][perm]}
+    params = meshgraphnet.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0))
+
+    def loss_fn(p, b):
+        return meshgraphnet.loss_fn(cfg, p, b)
+
+    with torch.no_grad():
+        l_input = float(loss_fn(params, data)[0])
+        l_jet = float(loss_fn(params, batch)[0])
+    del data, graph
+    if not _close(l_jet, l_input, GNN_LOSS_RTOL):
+        raise AssertionError(f"(r) loss on the reordered mesh {l_jet} != "
+                             f"input order {l_input}")
+    print(f"(r) loss in the Jet order {l_jet:.9g} == input order "
+          f"{l_input:.9g} within {GNN_LOSS_RTOL}")
+
+    # step 1 on both paths: loss and gradients; twice on the kernel path
+    (l_k, _), g_k = loop.value_and_grad(loss_fn, params, batch)
+    with plain_segment_sums():
+        (l_p, _), g_p = loop.value_and_grad(loss_fn, params, batch)
+    grad_l2 = _rel_l2(g_k, g_p)
+    del g_k, g_p
+    if not (_close(float(l_k), float(l_p), GNN_LOSS_RTOL)
+            and grad_l2 <= GNN_GRAD_RL2):
+        raise AssertionError(f"(r) step 1: loss {float(l_k)} vs plain "
+                             f"{float(l_p)}, gradients' relative L2 "
+                             f"{grad_l2:.3g}")
+    opt_cfg = adamw.AdamWConfig()
+    step = loop.build_train_step(loss_fn, opt_cfg)
+    zero = torch.zeros((), device=dev)
+    opt0 = adamw.init_state(params)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    first = step(params, opt0, zero, batch)
+    torch.cuda.synchronize()
+    per_step = kernels.launch_counts["segment_reduce"]
+    again = step(params, opt0, zero, batch)
+    want = gnn_segment_sums("meshgraphnet", cfg)
+    if per_step != want or per_step == 0:
+        raise AssertionError(f"(r) segment_reduce launches per step "
+                             f"{per_step} != {want}")
+    if not (_bitwise(first[0], again[0]) and _bitwise(first[1], again[1])
+            and _equal(first[3]["loss"], again[3]["loss"])):
+        raise AssertionError("(r) two runs of step 1 differ")
+    del first, again
+    print(f"(r) step 1: loss {float(l_k):.9g}, plain path {float(l_p):.9g}; "
+          f"gradients' relative L2 to plain {grad_l2:.3g} (gate "
+          f"{GNN_GRAD_RL2}); segment_reduce {per_step} launches a step "
+          f"(= 4 x {cfg.n_layers}: forward, recompute, 2 gather backwards); "
+          "two runs of the step equal bit for bit")
+
+    # 4. five AdamW steps through the loop on the kernel path, two plain
+    def recording(losses):
+        def run_step(*a):
+            out = step(*a)
+            losses.append(float(out[3]["loss"]))
+            times.append(time.perf_counter())
+            return out
+        return run_step
+
+    def stream():
+        while True:
+            yield batch
+
+    times, kernel_losses, plain_losses = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        t1 = time.perf_counter()
+        times.append(t1)
+        loop.run(loop.TrainLoopConfig(total_steps=5, ckpt_every=5,
+                                      ckpt_dir=d, resume=False),
+                 loop.TrainState(params, opt0, 0), recording(kernel_losses),
+                 stream(), log=lambda *a: None)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [b - a for a, b in zip(times, times[1:])]
+    with tempfile.TemporaryDirectory() as d, plain_segment_sums():
+        loop.run(loop.TrainLoopConfig(total_steps=2, ckpt_every=5,
+                                      ckpt_dir=d, resume=False),
+                 loop.TrainState(params, opt0, 0), recording(plain_losses),
+                 stream(), log=lambda *a: None)
+    if not all(_close(a, b, GNN_LOSS_RTOL)
+               for a, b in zip(kernel_losses, plain_losses)) or \
+            not all(np.isfinite(kernel_losses)):
+        raise AssertionError(f"(r) losses {kernel_losses} vs plain "
+                             f"{plain_losses}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    fwd = _mgn_forward_flops(cfg, n, e)
+    best = min(step_s[1:])
+    print(f"(r) 5 AdamW steps through loop.run: losses {kernel_losses}; "
+          f"plain path {plain_losses} (within {GNN_LOSS_RTOL})")
+    print(f"(r) step time {best:.4f} s (steps 2-5: "
+          f"{', '.join(f'{t:.4f}' for t in step_s[1:])}; step 1 "
+          f"{step_s[0]:.4f}); {4 * fwd / best / 1e12:.2f} TFLOP/s of "
+          f"{4 * fwd / 1e12:.2f} TFLOP a step (forward {fwd / 1e12:.3f} x 4: "
+          f"recompute, backward); peak memory {peak} B "
+          f"({peak / total:.3f} of the card)")
+    # the step holds every block's input (h, e) for the backward pass and
+    # recomputes one block at a time: 15 x 937,427,968 B saved plus one
+    # block's activations and gradients, 20-30 GB by the shapes
+    if not 20e9 <= peak <= 30e9:
+        raise AssertionError(f"(r) peak memory {peak} B is outside the "
+                             "20-30 GB that the checkpointed step needs")
+
+    # the step under the profiler: idle share, top operations, and no
+    # PyTorch scatter-add kernel
+    keys: list = []
+    groups = phase_profile("(r)", lambda: step(params, opt0, zero, batch),
+                           best, "train step", GNN_GROUPS, keys=keys)
+    bad = sorted({k_ for k_ in keys
+                  if any(w in k_.lower() for w in SCATTER_NAMES)})
+    if bad:
+        raise AssertionError(f"(r) the kernel path's step ran {bad[:5]}")
+    print(f"(r) no index_add / scatter_add / index_put operation or kernel "
+          f"in the step's {len(keys)} profiled names")
+
+    # segment_reduce at the step's shape: the edge latents (E, 128) by the
+    # sorted receivers into N rows
+    rcv = batch["graph"].plan.receivers
+    data_e = torch.randn(e, cfg.d_hidden, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    data_e = data_e.index_select(0, rcv.order)
+    got = ops.segment_sum_sorted(data_e, rcv.ids, n)
+    want_ = segment_sum_sorted_ref(data_e, rcv.ids, n)
+    ratio = tp.segment_error_ratio(got, want_, data_e, rcv.ids, n)
+    if not ratio <= 1:
+        raise AssertionError(f"(r) segment_reduce at the step's shape: "
+                             f"{ratio:.3f} of its tolerance")
+    err = float((got - want_).abs().max())
+    ms = _time_ms(lambda: ops.segment_sum_sorted(data_e, rcv.ids, n), 20)
+    plain_ms = _time_ms(lambda: segment_sum_sorted_ref(data_e, rcv.ids, n), 5)
+    idx = rcv.ids.long()
+    library_ms = _time_ms(lambda: torch.zeros(
+        n, cfg.d_hidden, device=dev).index_add_(0, idx, data_e), 20)
+    nbytes = (e + e * cfg.d_hidden + n * cfg.d_hidden) * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"(r) segment_reduce at M={e}, F={cfg.d_hidden}, S={n}: {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, zeros + index_add_ "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes); "
+          f"{ratio:.4f} of the float32 tolerance")
+    dev_ms = groups.get("segment_reduce")
+    print("(r) segment_reduce device time per step: " + (
+        "not measured" if dev_ms is None else f"{dev_ms:.2f} ms in "
+        f"{groups['segment_reduce calls']} kernels (3 a launch)"))
+    return {
+        "launches": per_step, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": library_ms,
+        "shape": {"M": e, "F": cfg.d_hidden, "S": n, "dtype": "float32"},
+        "device_ms_per_step": groups.get("segment_reduce"),
+        "step_s": best, "peak_bytes": peak,
+    }
+
+
+def _mgn_forward_flops(cfg, n: int, e: int) -> int:
+    """The forward pass's matrix-product flops: the encoders, each block's
+    edge MLP over E rows and node MLP over N rows, the decoder."""
+    from repro_torch.models.gnn.meshgraphnet import _mlp_dims
+
+    def mlp(rows, d_in, d_out=None):
+        dims = _mlp_dims(cfg, d_in, d_out)
+        return 2 * rows * sum(a * b for a, b in zip(dims, dims[1:]))
+
+    block = mlp(e, 3 * cfg.d_hidden) + mlp(n, 2 * cfg.d_hidden)
+    return (cfg.n_layers * block + mlp(n, cfg.d_in) + mlp(e, cfg.d_edge_in)
+            + mlp(n, cfg.d_hidden, cfg.d_out))
+
+
+def _train_both_paths(tag, loss_fn, params, batch, steps_n: int):
+    """Step 1 twice on the kernel path (bitwise equal), then ``steps_n``
+    AdamW steps on the kernel path (segment_reduce launches counted per
+    step) and on the plain path, from the same parameters: (kernel losses,
+    plain losses, launches per step)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    step = loop.build_train_step(loss_fn, adamw.AdamWConfig())
+    zero = torch.zeros((), device=batch["graph"].node_feat.device)
+    first, again = (step(params, adamw.init_state(params), zero, batch)
+                    for _ in range(2))
+    if not (_bitwise(first[:2], again[:2])
+            and _equal(first[3]["loss"], again[3]["loss"])):
+        raise AssertionError(f"{tag} two runs of step 1 differ")
+    del first, again
+
+    def run(n_steps):
+        p, o, losses, counts = params, adamw.init_state(params), [], []
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            p, o, _, m = step(p, o, zero, batch)
+            torch.cuda.synchronize()
+            counts.append(kernels.launch_counts["segment_reduce"])
+            losses.append(float(m["loss"]))
+        return losses, counts
+
+    kl, counts = run(steps_n)
+    with plain_segment_sums():
+        pl, _ = run(steps_n)
+    if not all(_close(a, b, GNN_LOSS_RTOL) for a, b in zip(kl, pl)) or \
+            not all(np.isfinite(kl)):
+        raise AssertionError(f"{tag} losses {kl} vs plain {pl}")
+    return kl, pl, counts
+
+
+def phase_gnn_archs(tp, dev):
+    """(s) GraphSAGE-Reddit, SchNet and NequIP at their published configs
+    on the repo's shapes; train.main, resume and the smoke configs."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data import graphs as gen
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps, train
+    from repro_torch.models.gnn import graphsage, nequip, schnet
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    launches = {}
+    # GraphSAGE-Reddit on minibatch_lg: a Reddit-sized planted-partition
+    # graph, sampled with the fanouts (15, 10) around 1024 seeds
+    arch = get_arch("graphsage-reddit")
+    shape = arch.shapes["minibatch_lg"]
+    cfg = dataclasses.replace(arch.config, d_in=shape["d_feat"])
+    t0 = time.perf_counter()
+    edges, labels = gen.planted_partition(shape["full_nodes"], cfg.n_classes,
+                                          50, seed=0)
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((shape["full_nodes"], shape["d_feat"]),
+                                dtype=np.float32)
+    sampler = synthetic.NeighborSampler(edges, shape["full_nodes"],
+                                        shape["fanout"], seed=0)
+    seeds = rng.choice(shape["full_nodes"], shape["batch_nodes"],
+                       replace=False)
+    sage_batch = sampler.sample(seeds, feats, labels, shape["pad_nodes"],
+                                shape["pad_edges"], device=dev)
+    sg = sage_batch["graph"]
+    n_nodes = int((sg.node_feat.abs().sum(1) > 0).sum())
+    n_edges = int((sg.senders < shape["pad_nodes"]).sum())
+    print(f"(s) graphsage-reddit: planted_partition({shape['full_nodes']}, "
+          f"{cfg.n_classes} blocks, degree 50) with {edges.shape[0]} "
+          f"directed edges, sampled with fanouts {shape['fanout']} around "
+          f"{shape['batch_nodes']} seeds: {n_nodes} of {shape['pad_nodes']} "
+          f"pad nodes, {n_edges} of {shape['pad_edges']} pad edges (in "
+          f"{time.perf_counter() - t0:.1f} s)")
+    del edges, feats, sampler
+    cases = [("graphsage-reddit", graphsage, cfg, sage_batch)]
+    for arch_id, mod in (("schnet", schnet), ("nequip", nequip)):
+        mol = get_arch(arch_id).shapes["molecule"]
+        cases.append((arch_id, mod, get_arch(arch_id).config,
+                      synthetic.molecule_batch(
+                          mol["n_graphs"], atoms=mol["atoms"],
+                          edges_per_graph=mol["n_edges"] // mol["n_graphs"],
+                          seed=0, device=dev)))
+    for arch_id, mod, cfg, batch in cases:
+        params = mod.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0))
+        kl, pl, counts = _train_both_paths(
+            "(s) " + arch_id, lambda p, b, c=cfg, m=mod: m.loss_fn(c, p, b),
+            params, batch, 3)
+        want = gnn_segment_sums(arch_id, cfg)
+        if any(c != want for c in counts) or want == 0:
+            raise AssertionError(f"(s) {arch_id}: segment_reduce launches "
+                                 f"{counts} != {want} a step")
+        launches[arch_id] = want
+        print(f"(s) {arch_id} ({cfg.param_count()} parameters): 3 AdamW "
+              f"steps, losses {kl}, plain path {pl} (within "
+              f"{GNN_LOSS_RTOL}); segment_reduce {want} launches a step; "
+              "step 1 bitwise equal across two runs")
+        if arch_id == "nequip":
+            qm, _ = np.linalg.qr(np.random.default_rng(7).standard_normal(
+                (3, 3)))
+            if np.linalg.det(qm) < 0:
+                qm[:, 0] *= -1
+            g_ = batch["graph"]
+            with torch.no_grad():
+                e0 = nequip.forward(cfg, params, g_)
+                e1 = nequip.forward(cfg, params, g_._replace(
+                    pos=g_.pos @ torch.from_numpy(qm.astype(np.float32)).to(
+                        dev) + 1.5))
+            rel = float(((e1 - e0).abs() / e0.abs()).max())
+            if not torch.allclose(e1, e0, rtol=1e-4, atol=1e-4):
+                raise AssertionError(f"(s) nequip rotation: {rel}")
+            print(f"(s) nequip energies of {e0.numel()} molecules under a "
+                  f"rotation and a translation: within rtol = atol = 1e-4 "
+                  f"(max relative change {rel:.3g})")
+    # a run killed at step 2 and resumed equals one that was not (SchNet)
+    arch_id, mod, cfg, batch = cases[1]
+    params = mod.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    step = loop.build_train_step(lambda p, b: mod.loss_fn(cfg, p, b),
+                                 adamw.AdamWConfig())
+
+    def stream():
+        while True:
+            yield batch
+
+    def state():
+        return loop.TrainState(params, adamw.init_state(params), 0)
+
+    with tempfile.TemporaryDirectory() as d:
+        quiet = lambda *a: None  # noqa: E731
+        whole = loop.run(loop.TrainLoopConfig(
+            total_steps=4, ckpt_every=2, ckpt_dir=f"{d}/a", resume=False),
+            state(), step, stream(), log=quiet)
+        try:
+            loop.run(loop.TrainLoopConfig(total_steps=4, ckpt_every=2,
+                                          ckpt_dir=f"{d}/b", fail_at_step=2),
+                     state(), step, stream(), log=quiet)
+            raise AssertionError("(s) the injected failure did not fire")
+        except loop.SimulatedFailure:
+            pass
+        resumed = loop.run(loop.TrainLoopConfig(
+            total_steps=4, ckpt_every=2, ckpt_dir=f"{d}/b"), state(), step,
+            stream(), log=quiet)
+        if not _bitwise({"p": whole.params, "o": whole.opt_state},
+                        {"p": resumed.params, "o": resumed.opt_state}):
+            raise AssertionError("(s) resumed run differs from the whole one")
+        print("(s) schnet: a run killed by fail_at_step=2 and resumed from "
+              "its step-2 checkpoint ends bit for bit equal to a whole run")
+        # the CLI on the card
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = train.main(["--arch", "meshgraphnet", "--steps", "4",
+                             "--ckpt-every", "2", "--ckpt-dir", f"{d}/cli"])
+        if rc != 0 or "[train] finished at step 4" not in out.getvalue():
+            raise AssertionError(f"(s) train.main: {rc} {out.getvalue()}")
+        print("(s) launch/train.main --arch meshgraphnet --steps 4 on the "
+              "card: finished at step 4")
+    # each smoke config on the card against the CPU
+    worst = 0.0
+    for arch_id in tp.GNN_ARCHS:
+        arch = get_arch(arch_id)
+        cfg = arch.smoke
+        b_np = tp.gnn_batch(arch_id, cfg, seed=0)
+        params = steps.GNN_MODULES[arch_id].init_params(
+            cfg, torch.Generator().manual_seed(0))
+        loss = steps.gnn_loss(arch_id, cfg, 3)
+        out = []
+        for device in ("cpu", dev):
+            b = steps.with_edge_plan({k: torch.from_numpy(v).to(device)
+                                      for k, v in b_np.items()}, 3)
+            p = tree.tree_map(lambda x: x.to(device), params)
+            (lv, _), g_ = loop.value_and_grad(loss, p, b)
+            out.append((float(lv), tree.tree_map(lambda x: x.cpu(), g_)))
+        (l_cpu, g_cpu), (l_card, g_card) = out
+        rl2 = _rel_l2(g_card, g_cpu)
+        worst = max(worst, abs(l_card - l_cpu) / max(abs(l_cpu), 1.0), rl2)
+        if not (abs(l_card - l_cpu) <= 2e-4 * max(abs(l_cpu), 1.0)
+                and rl2 <= 2e-4):
+            raise AssertionError(f"(s) {arch_id} smoke: card loss {l_card} "
+                                 f"vs CPU {l_cpu}, gradients {rl2}")
+    print(f"(s) the four smoke configs: card loss and gradients == CPU "
+          f"within 2e-4 (worst {worst:.3g})")
+    return launches
+
+
 PHASES = ("a", "b", "b2", "b3", "c", "d", "n", "p", "e", "g", "h", "m", "o",
-          "i", "j", "k", "l", "q")
+          "i", "j", "k", "l", "q", "r", "s")
 
 
 def main(argv=None) -> int:
@@ -2155,6 +2695,11 @@ def main(argv=None) -> int:
     if "q" in run:
         flash["mla_layer"] = timed("q", phase_deepseek, tp, dev)
     entries.append(flash)
+    if "r" in run:
+        segment["gnn"] = timed("r", phase_gnn_training, tp, dev)
+    if "s" in run:
+        segment.setdefault("gnn", {})["launches_per_step"] = timed(
+            "s", phase_gnn_archs, tp, dev)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if leaked:

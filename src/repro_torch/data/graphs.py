@@ -5,7 +5,10 @@ and seed give the same arrays.  2D/3D lattices (the paper's `grid`/`cube`),
 RMAT power-law graphs (social/web-like), Watts-Strogatz small-world rings,
 and random geometric graphs (finite-element-like), plus the reference's
 five-graph ``SUITE``.  Graphs are built on the CPU; move them with
-:meth:`Graph.to`.
+:meth:`Graph.to`.  One generator is the port's own:
+:func:`planted_partition`, a labelled community graph drawn in O(m) at
+sizes where the reference's dense ``community_graph`` cannot go (a
+Reddit-sized graph for GraphSAGE's neighbor sampler).
 """
 from __future__ import annotations
 
@@ -101,6 +104,34 @@ def random_geometric(n: int, radius: float | None = None, seed: int = 0,
                         edges.append((i, j))
     edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
     return build_csr_host(n, edges, **kw)
+
+
+def planted_partition(n: int, n_blocks: int, avg_degree: int,
+                      p_in: float = 0.8, seed: int = 0):
+    """Labelled community graph in O(m) memory: each vertex draws
+    ``avg_degree // 2`` partners, a share ``p_in`` of them uniform inside its
+    own block and the rest uniform over all vertices; self loops and repeated
+    pairs are dropped.  So every vertex has degree >= about avg_degree / 2,
+    and the mean is about ``avg_degree``.  Returns (edges (m, 2) int64, both
+    directions, as ``data/synthetic.py:community_graph``; labels (n,) int32,
+    the block of each vertex)."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, n_blocks, n)
+    members = np.argsort(labels, kind="stable")
+    sizes = np.bincount(labels, minlength=n_blocks)
+    starts = np.cumsum(sizes) - sizes
+    src = np.repeat(np.arange(n, dtype=np.int64), avg_degree // 2)
+    lab = labels[src]
+    inside = members[starts[lab] + (rng.random(src.size)
+                                    * sizes[lab]).astype(np.int64)]
+    anywhere = rng.integers(0, n, src.size)
+    dst = np.where(rng.random(src.size) < p_in, inside, anywhere)
+    keep = src != dst
+    lo, hi = np.minimum(src, dst)[keep], np.maximum(src, dst)[keep]
+    pairs = np.unique(lo * n + hi)
+    lo, hi = pairs // n, pairs % n
+    edges = np.concatenate([np.stack([lo, hi], 1), np.stack([hi, lo], 1)])
+    return edges.astype(np.int64), labels.astype(np.int32)
 
 
 def star(n: int, **kw) -> Graph:

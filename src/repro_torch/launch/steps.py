@@ -1,11 +1,11 @@
-"""Serve cells of the ported models (counterpart of the serve parts of
-``repro.launch.steps``).
+"""Cells of the ported models (counterpart of ``repro.launch.steps``): the
+LM and FM serve cells and the GNN train cells.
 
 A cell is a plain callable with example inputs made from a seed, for one
 (arch, shape) pair: ``cell.step_fn(*cell.args)`` runs the step.  The
 reference's cells carry shardings over a device mesh; the port runs on one
-card, so it has none.  Training cells wait for the port of the optimizer
-(ROADMAP.md, Queue 1).
+card, so it has none.  LM and FM training wait for gradients through the
+serving-only attention and FM paths (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -15,11 +15,16 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.configs.base import Arch
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
+from repro_torch.models.gnn import graphsage, meshgraphnet, nequip, schnet
+from repro_torch.models.gnn.common import GraphBatch, edge_plan
 from repro_torch.models.recsys import fm as fm_lib
+from repro_torch.optim import adamw
+from repro_torch.train.loop import value_and_grad
 
 
 SEED = 0  # of the cells' parameters and example inputs
@@ -29,6 +34,14 @@ class Cell(NamedTuple):
     step_fn: Callable
     args: tuple           # example inputs, on the cell's device
     meta: dict            # model_flops, param_count, kind, tokens
+
+
+GNN_MODULES = {
+    "schnet": schnet,
+    "nequip": nequip,
+    "graphsage-reddit": graphsage,
+    "meshgraphnet": meshgraphnet,
+}
 
 
 # ---------------------------------------------------------------------------
@@ -50,6 +63,30 @@ def lm_model_flops(cfg: tf.LMConfig, shape) -> float:
     return 2.0 * n_active * tokens + attn
 
 
+def gnn_model_flops(arch_id, cfg, shape) -> float:
+    n, e = shape.get("n_nodes", shape.get("pad_nodes", 0)), shape.get(
+        "n_edges", shape.get("pad_edges", 0))
+    if arch_id == "graphsage-reddit":
+        d = [cfg.d_in] + [cfg.d_hidden] * (cfg.n_layers - 1) + [cfg.n_classes]
+        fwd = sum(2 * n * d[i] * d[i + 1] * 2 + e * d[i]
+                  for i in range(cfg.n_layers))
+    elif arch_id == "schnet":
+        d, r = cfg.d_hidden, cfg.n_rbf
+        per = 2 * e * (r * d + d * d) + 2 * n * 3 * d * d + e * d
+        fwd = cfg.n_interactions * per + 2 * n * d * (d // 2)
+    elif arch_id == "nequip":
+        c, r = cfg.d_hidden, cfg.n_rbf
+        per = (2 * e * (r * 32 + 32 * cfg.n_paths * c)
+               + e * c * (1 + 3 * 4 + 9 * 2) * 2
+               + 2 * n * (2 * c * c + 3 * c * c + 9 * c * c))
+        fwd = cfg.n_layers * per + 2 * n * c * 16
+    else:  # meshgraphnet
+        d = cfg.d_hidden
+        per = 2 * e * (3 * d * d + d * d) + 2 * n * (2 * d * d + d * d)
+        fwd = cfg.n_layers * per + 2 * n * (cfg.d_in + cfg.d_out) * d
+    return 3.0 * fwd  # fwd + bwd ~ 3x forward
+
+
 def fm_model_flops(cfg, shape) -> float:
     if shape["kind"] == "retrieval":
         return 2.0 * shape["n_candidates"] * cfg.embed_dim
@@ -58,7 +95,7 @@ def fm_model_flops(cfg, shape) -> float:
 
 
 def smoke_shapes(arch: Arch) -> dict:
-    """Reduced shapes for CPU smoke tests (the reference's, LM and recsys)."""
+    """Reduced shapes for CPU smoke tests (the reference's)."""
     if arch.family == "lm":
         return {
             "train_4k": {"kind": "train", "seq": 64, "batch": 2},
@@ -66,6 +103,19 @@ def smoke_shapes(arch: Arch) -> dict:
             "decode_32k": {"kind": "decode", "seq": 64, "batch": 2},
             "long_500k": (None if arch.shapes.get("long_500k") is None else
                           {"kind": "decode", "seq": 128, "batch": 1}),
+        }
+    if arch.family == "gnn":
+        return {
+            "full_graph_sm": {"kind": "train", "n_nodes": 128, "n_edges": 512,
+                              "d_feat": 16, "n_graphs": 1},
+            "minibatch_lg": {"kind": "train", "pad_nodes": 256,
+                             "pad_edges": 512, "d_feat": 16, "n_graphs": 1,
+                             "batch_nodes": 16, "fanout": (5, 5),
+                             "full_nodes": 0, "full_edges": 0},
+            "ogb_products": {"kind": "train", "n_nodes": 256, "n_edges": 1024,
+                             "d_feat": 16, "n_graphs": 1},
+            "molecule": {"kind": "train", "n_nodes": 4 * 10, "n_edges": 4 * 32,
+                         "d_feat": 16, "n_graphs": 4, "atoms": 10},
         }
     return {
         "train_batch": {"kind": "train", "batch": 64},
@@ -78,8 +128,25 @@ def smoke_shapes(arch: Arch) -> dict:
 
 def _training_not_ported(arch: Arch, shape_name: str):
     return NotImplementedError(
-        f"{arch.id} {shape_name}: training cells wait for the port of the "
-        "optimizer and the training loop (ROADMAP.md, Queue 1)")
+        f"{arch.id} {shape_name}: LM and FM training wait for gradients "
+        "through the serving-only attention and FM paths (ROADMAP.md, "
+        "Queue 1)")
+
+
+def materialize(args, seed: int = 0):
+    """Example inputs of the same shapes as ``args`` (trees of tensors):
+    every float leaf N(0, 1) * 0.02 from a numpy generator seeded with
+    ``seed`` (each leaf from the same seed, as the reference draws each
+    from the same key), every integer leaf zero."""
+
+    def one(x):
+        if x.dtype.is_floating_point:
+            a = np.random.default_rng(seed).standard_normal(
+                tuple(x.shape), dtype=np.float32) * np.float32(0.02)
+            return torch.from_numpy(a).to(device=x.device, dtype=x.dtype)
+        return torch.zeros_like(x)
+
+    return tree.tree_map(one, args)
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +181,118 @@ def _lm_cell(arch: Arch, shape_name: str, cfg: tf.LMConfig, shape, params,
 
     cache = tf.init_cache(cfg, batch, seq, device=device)
     return Cell(serve_step, (params, cache, tokens[:, 0]), meta)
+
+
+# ---------------------------------------------------------------------------
+# GNN cells
+# ---------------------------------------------------------------------------
+
+def _gnn_shape_config(arch: Arch, shape_name: str, smoke: bool):
+    cfg = arch.smoke if smoke else arch.config
+    shape = arch.shapes[shape_name]
+    if arch.id == "graphsage-reddit":
+        cfg = dataclasses.replace(cfg, d_in=shape["d_feat"])
+    elif arch.id == "meshgraphnet":
+        cfg = dataclasses.replace(cfg, d_in=shape["d_feat"])
+    return cfg, shape
+
+
+def _pad512(x: int) -> int:
+    """Mesh-divisible padding (512 = the reference's largest mesh device
+    count); the models' ghost-index convention makes padded rows inert."""
+    return ((x + 511) // 512) * 512
+
+
+def _gnn_batch_spec(arch_id: str, shape) -> dict:
+    """name -> (shape, dtype) of the cell's batch."""
+    n = _pad512(shape.get("n_nodes", shape.get("pad_nodes")))
+    e = _pad512(shape.get("n_edges", shape.get("pad_edges")))
+    g = shape["n_graphs"]
+    d_feat = shape["d_feat"]
+    molecular = arch_id in ("schnet", "nequip")
+    b = {
+        "node_feat": ((n, 1 if molecular else d_feat), torch.float32),
+        "senders": ((e,), torch.int32),
+        "receivers": ((e,), torch.int32),
+        "pos": ((n, 3), torch.float32),
+        "graph_id": ((n,), torch.int32),
+    }
+    if molecular:
+        b["energy"] = ((g,), torch.float32)
+    elif arch_id == "graphsage-reddit":
+        b["labels"] = ((n,), torch.int32)
+    else:
+        b["target"] = ((n, 2), torch.float32)
+    return b
+
+
+def with_edge_plan(b: dict, n_graphs: int) -> dict:
+    """The batch dict with its edge plan (``"plan"``), built once: every
+    step over this batch reuses it."""
+    return {**b, "plan": edge_plan(b["senders"], b["receivers"],
+                                   b["graph_id"], n_graphs)}
+
+
+def gnn_loss(arch_id: str, cfg, n_graphs: int):
+    """loss(params, b) over a cell's batch dict ``b``."""
+    mod = GNN_MODULES[arch_id]
+
+    def loss(params, b):
+        graph = GraphBatch(
+            node_feat=b["node_feat"], senders=b["senders"],
+            receivers=b["receivers"], edge_feat=None, pos=b["pos"],
+            graph_id=b["graph_id"], n_graphs=n_graphs, plan=b.get("plan"))
+        if arch_id in ("schnet", "nequip"):
+            payload = {"graph": graph, "energy": b["energy"]}
+        elif arch_id == "graphsage-reddit":
+            payload = {"graph": graph, "labels": b["labels"]}
+        else:
+            payload = {"graph": graph, "target": b["target"]}
+        return mod.loss_fn(cfg, params, payload)
+
+    return loss
+
+
+def _gnn_cell(arch: Arch, shape_name: str, cfg, shape, params,
+              device) -> Cell:
+    n_graphs = shape["n_graphs"]
+    opt_cfg = adamw.AdamWConfig()
+    loss = gnn_loss(arch.id, cfg, n_graphs)
+
+    def train_step(params, opt_state, b):
+        (l, metrics), grads = value_and_grad(loss, params, b)
+        params, opt_state, om = adamw.apply_updates(
+            opt_cfg, params, grads, opt_state)
+        return params, opt_state, {"loss": l, **om}
+
+    spec = _gnn_batch_spec(arch.id, shape)
+    batch = materialize({k: torch.empty(s, dtype=dt, device=device)
+                         for k, (s, dt) in spec.items()}, SEED)
+    return Cell(
+        step_fn=train_step,
+        args=(params, adamw.init_state(params),
+              with_edge_plan(batch, n_graphs)),
+        meta={
+            "kind": "train",
+            "param_count": cfg.param_count(),
+            "active_param_count": cfg.param_count(),
+            "model_flops": gnn_model_flops(arch.id, cfg, shape),
+            "tokens": shape.get("n_nodes", shape.get("pad_nodes")),
+            "n_graphs": n_graphs,
+        },
+    )
+
+
+def materialize_cell(cell: Cell, seed: int = 0):
+    """A train cell's (params, opt_state, batch) drawn anew from ``seed``
+    by :func:`materialize`; the optimizer state must be *valid* (zero
+    moments), not random — sqrt(random nu) is NaN."""
+    params, _, batch = cell.args
+    params = materialize(params, seed)
+    batch = materialize({k: v for k, v in batch.items() if k != "plan"},
+                        seed)
+    return (params, adamw.init_state(params),
+            with_edge_plan(batch, cell.meta["n_graphs"]))
 
 
 # ---------------------------------------------------------------------------
@@ -157,7 +336,8 @@ def _fm_cell(arch: Arch, shape_name: str, cfg: fm_lib.FMConfig, shape,
 
 def build_cell(arch: Arch, shape_name: str, device=None, smoke: bool = False,
                params=None) -> Cell:
-    """The serve cell of ``arch`` at ``shape_name``.
+    """The cell of ``arch`` at ``shape_name``: an LM or FM serve cell, or a
+    GNN train cell (args: params, optimizer state, batch).
 
     ``smoke`` takes the reduced config and shapes.  ``params`` defaults to
     the model's ``init_params`` from a generator seeded with ``SEED`` on
@@ -172,14 +352,15 @@ def build_cell(arch: Arch, shape_name: str, device=None, smoke: bool = False,
     if shape is None:
         raise ValueError(f"{arch.id} {shape_name}: "
                          f"{arch.skip_notes.get(shape_name, 'skipped')}")
-    cfg = arch.smoke if smoke else arch.config
-    module: Any = {"lm": tf, "recsys": fm_lib}.get(arch.family)
-    if module is None:
-        raise NotImplementedError(
-            f"{arch.id}: the {arch.family} family is still to be ported "
-            "(ROADMAP.md, Queue 1)")
+    if arch.family == "gnn":
+        cfg, shape = _gnn_shape_config(arch, shape_name, smoke)
+        module: Any = GNN_MODULES[arch.id]
+        make = _gnn_cell
+    else:
+        cfg = arch.smoke if smoke else arch.config
+        module = {"lm": tf, "recsys": fm_lib}[arch.family]
+        make = _lm_cell if arch.family == "lm" else _fm_cell
     if params is None:
         gen = torch.Generator(device=device).manual_seed(SEED)
         params = module.init_params(cfg, gen)
-    make = _lm_cell if arch.family == "lm" else _fm_cell
     return make(arch, shape_name, cfg, shape, params, device)

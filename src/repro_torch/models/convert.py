@@ -26,9 +26,11 @@ def to_tensor(a, device=None) -> torch.Tensor:
 
 
 def tree_to_tensors(tree, device=None):
-    """Nested dicts of arrays -> the same nesting of tensors."""
+    """Nested dicts and lists of arrays -> the same nesting of tensors."""
     if isinstance(tree, dict):
         return {k: tree_to_tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to_tensors(v, device) for v in tree]
     return to_tensor(tree, device)
 
 
@@ -47,3 +49,11 @@ def lm_params(np_params, device=None) -> dict:
     return {"embed": to_tensor(np_params["embed"], device),
             "final_ln": to_tensor(np_params["final_ln"], device),
             "layers": tree_to_tensors(np_params["layers"], device)}
+
+
+def gnn_params(np_params, device=None) -> dict:
+    """The ``init_params`` output of any of ``repro.models.gnn``'s four
+    models -> ``models/gnn`` parameters: the same nesting, with stacked
+    (L, ...) layer leaves and ``mlp_init``'s lists of ``{"w", "b"}`` as
+    they are."""
+    return tree_to_tensors(np_params, device)

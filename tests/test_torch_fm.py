@@ -28,6 +28,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS  # noqa: E402
 from repro.configs import get_arch as jax_get_arch  # noqa: E402
 from repro.data import synthetic as jsynth  # noqa: E402
 from repro.kernels.fm_interaction.ops import fm_interaction as jfm  # noqa: E402
@@ -35,7 +36,7 @@ from repro.kernels.fm_interaction.ref import fm_interaction_ref as jref  # noqa:
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models.recsys import fm as jfm_lib  # noqa: E402
 from repro_torch import kernels  # noqa: E402
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_arch  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels.fm_interaction import ops  # noqa: E402
 from repro_torch.kernels.fm_interaction.ref import fm_interaction_ref  # noqa: E402
@@ -170,8 +171,9 @@ def test_config_and_data_match_reference():
         assert got.param_count() == want.param_count()
     assert arch.shapes == jarch.shapes and arch.source == jarch.source
     assert arch.config.vocab_total * arch.config.embed_dim * 4 == 408_944_640
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_arch("schnet")
+    assert ARCH_IDS == JAX_ARCH_IDS  # every arch of the reference's registry
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("schnet-xl")
     got = synthetic.recsys_batches(39, 1000, 16, seed=5)
     want = jsynth.recsys_batches(39, 1000, 16, seed=5)
     for _ in range(2):

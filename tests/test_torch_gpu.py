@@ -1,8 +1,10 @@
 """The port on a CUDA card: the jet_gain, segment_reduce, fm_interaction
 and flash_attention kernels against their plain versions, partition()
 against the CPU run, the committed golden results and, for the sorted
-backend, the dense backend, and the serving models (FM, Gemma-3 1B and
-DeepSeek-V2-Lite's MLA + MoE) against their CPU runs.
+backend, the dense backend, the serving models (FM, Gemma-3 1B and
+DeepSeek-V2-Lite's MLA + MoE) against their CPU runs, and GNN training:
+scatter_sum and gather_nodes with their backward passes on the
+segment_reduce kernel, and each GNN's train step against the CPU's.
 
 Wrapper contracts: every wrapper takes strided views (one launch per
 call), segment_reduce takes bfloat16 and float16 (float32 sums, one
@@ -22,7 +24,8 @@ agree bit for bit, and the tolerance is: segment_reduce on float32, 1e-5 +
 1e-5 * (the sum of |x| over the segment); fm_interaction, 1e-5 + 1e-5 *
 (the row's sum of e^2); flash_attention, 2e-5 + 2e-5 * |plain| in float32
 and 1e-5 + 1e-2 * |plain| in bfloat16 and float16 (``torch_parity.py``);
-the models' logits and scores against the CPU, 2e-4.
+the models' logits and scores, and the GNNs' losses and gradients, against
+the CPU, 2e-4.
 """
 import numpy as np
 import pytest
@@ -396,3 +399,82 @@ def test_serve_on_card_matches_golden(cuda):
         assert json.loads(json.dumps(list(server.dispatch_log))) == \
             golden[name]["dispatch_log"], name
         assert all(r.parts.device.type == "cuda" for r in got)
+
+
+def test_gnn_scatter_and_gather_on_card(cuda):
+    """scatter_sum and gather_nodes on the card: forward and backward on the
+    segment_reduce kernel (one launch each), against the CPU's plain
+    version within its float32 tolerance, and bit for bit across two runs;
+    ghost edges, an empty segment and (E, C, 3) data."""
+    from repro_torch.models.gnn import common
+
+    rng = np.random.default_rng(0)
+    n, e = 300, 5000
+    idx = rng.integers(0, n + 1, e).astype(np.int32)
+    idx[idx == 7] = 8                        # node 7 receives nothing
+    vals = rng.standard_normal((e, 4, 3)).astype(np.float32)
+    x = rng.standard_normal((n, 4, 3)).astype(np.float32)
+    w = rng.standard_normal((n, 4, 3)).astype(np.float32)
+
+    def run(device):
+        index = common.sorted_index(torch.from_numpy(idx).to(device), n)
+        v = torch.from_numpy(vals).to(device).requires_grad_(True)
+        h = torch.from_numpy(x).to(device).requires_grad_(True)
+        before = kernels.launch_counts["segment_reduce"]
+        s = common.scatter_sum(v, index, n)
+        g = common.gather_nodes(h, index)
+        (torch.sum(s * torch.from_numpy(w).to(device))
+         + torch.sum(g * v.detach())).backward()
+        launched = kernels.launch_counts["segment_reduce"] - before
+        return [t.detach().cpu() for t in (s, g, v.grad, h.grad)], launched
+
+    cpu, _ = run("cpu")
+    card, launched = run(cuda)
+    again, _ = run(cuda)
+    assert launched == 2  # the scatter's forward, the gather's backward
+    assert all(torch.equal(a, b) for a, b in zip(card, again))
+    for a, b in zip(card, cpu):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert float(card[0][7].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("arch_id", tp.GNN_ARCHS)
+def test_gnn_training_on_card_matches_cpu(cuda, arch_id):
+    """One train step of each GNN's smoke config on the card: loss and
+    gradients within 2e-4 of the CPU's, segment_reduce launched as
+    ``chip_smoke.gnn_segment_sums`` counts, and the step bit for bit equal
+    across two runs."""
+    import chip_smoke
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    cfg = get_arch(arch_id).smoke
+    b_np = tp.gnn_batch(arch_id, cfg, seed=0)
+    params = steps.GNN_MODULES[arch_id].init_params(
+        cfg, torch.Generator().manual_seed(0))
+    loss = steps.gnn_loss(arch_id, cfg, 3)
+
+    def batch(device):
+        return steps.with_edge_plan(
+            {k: torch.from_numpy(v).to(device) for k, v in b_np.items()}, 3)
+
+    (l_cpu, _), g_cpu = loop.value_and_grad(loss, params, batch("cpu"))
+    p_card = tree.tree_map(lambda x: x.to(cuda), params)
+    b_card = batch(cuda)
+    before = kernels.launch_counts["segment_reduce"]
+    (l_card, _), g_card = loop.value_and_grad(loss, p_card, b_card)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["segment_reduce"] - before == \
+        chip_smoke.gnn_segment_sums(arch_id, cfg)
+    torch.testing.assert_close(l_card.cpu(), l_cpu, rtol=2e-4, atol=2e-4)
+    for a, b in zip(tree.leaves(g_card), tree.leaves(g_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-4)
+    step = loop.build_train_step(loss, adamw.AdamWConfig())
+    zero = torch.zeros((), device=cuda)
+    one, two = (step(p_card, adamw.init_state(p_card), zero, b_card)
+                for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree.leaves(one[:2]), tree.leaves(two[:2])))

@@ -383,6 +383,44 @@ def qkv(b, h, hkv, sq, skv, d, dtype, seed: int, device, dv=None):
                           (b, hkv, skv, dv or d))]
 
 
+GNN_ARCHS = ("meshgraphnet", "graphsage-reddit", "schnet", "nequip")
+GNN_LABEL = {"meshgraphnet": "target", "graphsage-reddit": "labels",
+             "schnet": "energy", "nequip": "energy"}
+
+
+def gnn_batch(arch_id: str, cfg, seed: int, n: int = 24, e: int = 80,
+              g: int = 3) -> dict:
+    """A GNN batch as numpy arrays (a cell's batch dict: node_feat,
+    senders, receivers, pos, graph_id and the arch's label), made from
+    ``seed``: N = n nodes of which the last 4 are pad nodes (graph_id g),
+    e edges in [0, n] (index n is the ghost) with the first 5 aimed at node
+    0; molecular species include ids to truncate and to clip."""
+    rng = np.random.default_rng(seed)
+    pad = 4
+    b = {
+        "senders": rng.integers(0, n + 1, e).astype(np.int32),
+        "receivers": rng.integers(0, n + 1, e).astype(np.int32),
+        "graph_id": np.concatenate([np.sort(rng.integers(0, g, n - pad)),
+                                    np.full(pad, g)]).astype(np.int32),
+        "pos": (rng.random((n, 3)) * 2.0).astype(np.float32),
+    }
+    b["receivers"][:5] = 0
+    if arch_id in ("schnet", "nequip"):
+        z = rng.integers(0, cfg.n_species, n).astype(np.float32)
+        z[:3] = [-1.5, cfg.n_species + 3, 2.7]
+        b["node_feat"] = z[:, None]
+        b["energy"] = rng.standard_normal(g).astype(np.float32)
+    else:
+        b["node_feat"] = rng.standard_normal((n, cfg.d_in)).astype(np.float32)
+        if arch_id == "graphsage-reddit":
+            labels = rng.integers(0, cfg.n_classes, n).astype(np.int32)
+            labels[::3] = -1
+            b["labels"] = labels
+        else:
+            b["target"] = rng.standard_normal((n, 2)).astype(np.float32)
+    return b
+
+
 def load_golden() -> dict:
     return json.loads(GOLDEN.read_text())["cases"]
 
