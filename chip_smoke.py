@@ -40,15 +40,17 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       jet_gain launched once per refinement iteration; then jet_gain and its
       plain version timed with CUDA events at the finest level's shapes.
   (f) where the time goes: the same partition() once more under
-      torch.profiler — device busy time against phase (e)'s wall time, the
+      torch.profiler (device activity only) — device busy time against
+      phase (e)'s wall time, the
       kernels that take the most device time, and jet_gain's device time
       over the whole partition().
   (g) full width, sorted: the configuration of (e) with backend="sorted":
       parts, trial parts, cut and level stats equal (e)'s bit for bit, and
       segment_reduce launched as often as the loop's queries need; the
       kernel, its plain version and index_add_ timed at the finest level's
-      shapes; the top device operations and the sort's share of them; the
-      kernel timed at every shape the timed partition() gave it (inputs
+      shapes; the top device operations and the sort's share of them (a
+      profile of device activity only); the kernel timed at every shape
+      the timed partition() gave it (inputs
       kept on the host during that run; the sum of launches x time); and a
       record at F = 128, M = 2^20 (runs of about 8 rows) against plain and
       index_add_.
@@ -157,6 +159,41 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       at step 2 and resumed equals a whole run bit for bit;
       ``launch/train.main --arch meshgraphnet`` on the card; each smoke
       config's loss and gradients on the card within 2e-4 of the CPU's.
+  (t) the backward kernels against their plain versions: fm_interaction's
+      (D in {1, 8, 10, MAX_DIM}, F in {0, 1, 39}, B up to 65,536, float32
+      within 1e-6 relative L2, bfloat16 and float16 within one rounding
+      step of the output, a strided view) and flash_attention's (the
+      shapes of (k) at (D, Dv) in {16/16, 64/64, 128/128, 192/128,
+      256/256}: float32 within 1e-4 relative L2 of plain for dq, dk, dv,
+      16-bit within 2e-2; dq = 0 for rows that see no key); bitwise equal
+      across two launches; the forward with its log-sum-exp bitwise equal
+      to the forward without; the backward, its plain version and SDPA's
+      backward timed at Gemma-3 1B's training layers (8, 4, 4096, 256),
+      windows 0 and 512, and at the MLA layer.
+  (u) FM training at its published config (39 fields, D = 10, 262,144
+      rows per field), train_batch B = 65,536: step 1 on the kernel and
+      plain paths (loss within 1e-6 relative, gradients within 1e-5
+      relative L2) and twice on the kernel path (bit for bit);
+      fm_interaction 1 + 1 and segment_reduce 2 launches a step; 5 AdamW
+      steps through ``train/loop.run``; step time, examples/s, peak
+      memory; the step under torch.profiler (idle share, no index_add,
+      scatter_add or index_put); the backward kernel timed at the step's
+      shape.
+  (v) Gemma-3 1B training at full width and depth (26 layers, bfloat16,
+      remat; 999,812,736 parameters) on train_4k's sequence of 4096 with
+      the batch cut from 256 to 8: step 1 on the kernel, plain and SDPA
+      paths (loss within 1e-3 relative of plain, gradients within
+      max(2e-2, 2 x the SDPA path's) relative L2) and twice on the kernel
+      path (bit for bit); flash_attention 2 x 26, its backward 26 and
+      segment_reduce 1 launches a step; 3 AdamW steps through
+      ``train/loop.run``, the checkpoint's bfloat16 parameters restored bit
+      for bit; step time, tokens/s, TFLOP/s of model flops, peak memory
+      (gated on PERF.md's 20-45 GB); the step under torch.profiler (idle share, top
+      operations, no index_add, index_put or embedding backward).
+  (w) the smoke configs of gemma3-1b, deepseek-v2-lite-16b (MLA + MoE),
+      moonshot-v1-16b-a3b (GQA + MoE) and fm: loss and gradients on the
+      card within 2e-4 of the CPU's; ``launch/train.main --arch gemma3-1b``
+      and ``--arch fm`` on the card.
   The script ends by checking that no jax or repro (JAX package) module was
   imported.  ``--phases`` runs a subset, for debugging; such a run prints no
   result line.
@@ -198,6 +235,20 @@ def gnn_segment_sums(arch_id: str, cfg) -> int:
     if arch_id == "nequip":  # 3 scatters x 2 + s_j, V_j, T_j backward
         return 9 * cfg.n_layers - 2 + 2
     raise ValueError(arch_id)
+
+
+def lm_flash_launches(cfg) -> tuple[int, int]:
+    """flash_attention forward and backward launches in one LM train step,
+    counted from the code (``repro_torch/models/transformer.py``): one
+    forward a layer, again in each layer's checkpoint recompute when
+    ``cfg.remat`` is on, and one backward a layer."""
+    return cfg.n_layers * (2 if cfg.remat else 1), cfg.n_layers
+
+
+# segment_reduce calls in one LM or FM train step, counted from the code
+# (``models/gather.py``): one for each embedding table's gradient, the LM's
+# ``embed`` and FM's ``table`` and ``linear``
+EMBED_SEGMENT_SUMS = {"lm": 1, "recsys": 2}
 
 
 def nvidia_smi() -> str:
@@ -586,7 +637,7 @@ def phase_full_width(dev):
     if err != 0:
         raise AssertionError(f"(e) jet_gain differs from plain by {err}")
     groups = phase_profile("(f)", lambda: partition(g, cfg),
-                           res.times["total_s"])
+                           res.times["total_s"], cuda_only=True)
     print(f"(e) jet_gain device time per partition(): "
           f"{groups.get('jet_gain', 'not measured')} ms (the profile of (f))")
     _jet_gain_levels(g, cfg)
@@ -645,20 +696,22 @@ FM_GROUPS = (("fm_interaction", ("fm_kernel",)),)
 
 
 def phase_profile(tag: str, run, wall_s: float, what: str = "partition()",
-                  groups=PARTITION_GROUPS, keys: list | None = None
-                  ) -> dict[str, float]:
+                  groups=PARTITION_GROUPS, keys: list | None = None,
+                  cuda_only: bool = False) -> dict[str, float]:
     """``run()`` once more under torch.profiler: device busy time against
     ``wall_s``, the unprofiled run's wall time, the kernels that take the
     most device time, and the share of each group of kernel names.  Returns
     each group's device time in ms, and its launches under "<group> calls"
     (empty if the profiler saw none); ``keys``, if given, receives the name
-    of every operation and kernel the profiler saw."""
+    of every operation and kernel the profiler saw.  ``cuda_only`` records
+    device activity alone (no host operator names)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] if cuda_only else [
+        ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         run()
         torch.cuda.synchronize()
     events = prof.key_averages()
@@ -812,9 +865,12 @@ def phase_sorted_full_width(tp, dev, g, cfg_ell, res_ell):
     for what, args in (("run-weight", (data, ids, s)),
                        ("conn_self", (data2, ids2, s2))):
         _segment_kernels(what, lambda a=args: ops.segment_sum_sorted(*a))
+    # the profile records device activity only, as (f)'s: the host-side
+    # operator events of the ~330,000 device operations cost the profiler
+    # and its report most of this phase's time, and nothing here reads them
     t_prof = time.perf_counter()
     groups = phase_profile("(g)", lambda: partition(g, cfg),
-                           res.times["total_s"])
+                           res.times["total_s"], cuda_only=True)
     print(f"(g) the profiled partition() and its report took "
           f"{time.perf_counter() - t_prof:.1f} s")
     print(f"(g) segment_reduce device time per partition(): "
@@ -2617,8 +2673,594 @@ def phase_gnn_archs(tp, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# LM and FM training: the backward kernels, FM and Gemma-3 1B at full width
+# ---------------------------------------------------------------------------
+
+# kernels that would add a gradient's rows with atomics: the embedding
+# tables' gradients must come from segment_reduce instead (CE's one-hot
+# ``gather`` backward, a scatter of one element a row, is order-free)
+INDEX_ADD_NAMES = ("index_add", "index_put", "indexing_backward",
+                   "embedding_dense_backward")
+SEGMENT_KERNELS = ("splits_pass", "tiles_pass", "carry_pass")
+LM_TRAIN_GROUPS = (("flash_attention", ("flash_kernel",)),
+                   ("flash_attention backward", ("dkdv_kernel", "dq_kernel",
+                                                 "delta_kernel")),
+                   ("segment_reduce", SEGMENT_KERNELS),
+                   ("matrix product", ("gemm", "gemv", "cutlass", "nvjet",
+                                       "xmma")))
+FM_TRAIN_GROUPS = (("fm_interaction", ("fm_kernel",)),
+                   ("fm_interaction backward", ("fm_bwd_kernel",)),
+                   ("segment_reduce", SEGMENT_KERNELS),
+                   ("row gathers (index_select)", ("gather_kernel",
+                                                   "indexselect")),
+                   ("sort", ("sort",)))
+FLASH_BWD_WIDTHS = ((16, 16), (64, 64), (128, 128), (192, 128), (256, 256))
+
+
+def _grad_rel(got, want) -> float:
+    """The largest relative L2 distance of dq, dk and dv."""
+    return max(_rel_l2(g.float(), w.float()) for g, w in zip(got, want))
+
+
+def _flash_bwd_at_shape(dev, window: int, b=8, h=4, hkv=1, s=4096, d=256,
+                        dv=256):
+    """The backward kernel, its plain version and SDPA's backward at one
+    causal bfloat16 layer; the default is Gemma-3 1B's training layer
+    (B=8, H=4, Hkv=1, S=4096, D=Dv=256)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(window + 1)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                   .to(torch.bfloat16) for shape in (
+                       (b, h, s, d), (b, hkv, s, d), (b, hkv, s, dv),
+                       (b, h, s, dv)))
+    o, lse = ops._flash_attention_cuda(q, k, v, True, window, 0,
+                                       with_lse=True)
+    o_ref, lse_ref = flash_attention_ref(q, k, v, True, window,
+                                         return_lse=True)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, True, window)
+    want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, True, window)
+    # the library yardstick: PyTorch's fused attention and its backward
+    lq, lk, lv = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = sdpa_attention(lq, lk, lv, True, window, 0)
+    lib = torch.autograd.grad(out, (lq, lk, lv), do, retain_graph=True)
+    rel, lib_rel = _grad_rel(got, want), _grad_rel(lib, want)
+    err = max(float((x.float() - y.float()).abs().max())
+              for x, y in zip(got, want))
+    del want, lib, o_ref, lse_ref
+    ms = _time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, True,
+                                                  window), 3)
+    plain_ms = _time_ms(lambda: flash_attention_bwd_ref(
+        q, k, v, o, lse, do, True, window), 2)
+    library_ms = _time_ms(lambda: torch.autograd.grad(
+        out, (lq, lk, lv), do, retain_graph=True), 3)
+    # q, k, v, o, do in and dq, dk, dv out (2 bytes each), lse in (4); the
+    # gradient's products: S = q k^T (2 D), dP = do v^T (2 Dv), dV = P^T do
+    # (2 Dv), dQ = dS k (2 D), dK = dS^T q (2 D) a visible pair
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                  + 2 * o.numel()) + 4 * lse.numel()
+    flops = (6 * d + 4 * dv) * _attention_pairs(s, window) * b * h
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bytes": nbytes, "flops": flops,
+            "max_abs_err": err, "rel_l2": rel, "library_rel_l2": lib_rel,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= flops / BF16_FLOPS_PER_S else "operations"}
+
+
+def phase_train_kernels(tp, dev):
+    """(t) the two backward kernels against their plain versions, and the
+    flash forward with its log-sum-exp against the forward without it."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    from repro_torch.kernels.fm_interaction import ops as fm_ops
+    from repro_torch.kernels.fm_interaction.ref import fm_interaction_bwd_ref
+
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    # fm_interaction's backward: float32 within 1e-6 relative L2, 16-bit
+    # within one step of the output's rounding; bitwise across launches
+    t_fm = time.perf_counter()
+    n_fm, worst_fm = 0, {}
+    for d in (1, 8, 10, fm_ops.MAX_DIM):
+        for f in (0, 1, 39):
+            for b in ((1, 257, 65536) if d <= 10 else (1, 3)):
+                gen = torch.Generator(device=dev).manual_seed(b * 64 + f + d)
+                e32 = torch.randn(b, f, d, generator=gen, device=dev)
+                g = torch.randn(b, generator=gen, device=dev)
+                for dtype in dtypes:
+                    e = e32.to(dtype)
+                    got = fm_ops.fm_interaction_bwd(e, g)
+                    again = fm_ops.fm_interaction_bwd(e, g)
+                    want = fm_interaction_bwd_ref(e, g)
+                    torch.cuda.synchronize()
+                    where = f"(t) fm_interaction backward B={b} F={f} D={d} "\
+                        f"{dtype}"
+                    if not _equal(got, again) or got.shape != e.shape:
+                        raise AssertionError(f"{where}: two launches differ")
+                    if got.numel() == 0 or not bool(want.any()):
+                        # F = 1: every gradient is s - e = 0 exactly
+                        ratio = 0.0 if torch.equal(got, want) else np.inf
+                    elif dtype == torch.float32:
+                        ratio = _rel_l2(got, want) / 1e-6
+                    else:
+                        w = want.float()
+                        step = torch.finfo(dtype).eps * w.abs() + \
+                            torch.finfo(dtype).tiny
+                        ratio = float(((got.float() - w).abs() / step).max())
+                    if not ratio <= 1:
+                        raise AssertionError(f"{where}: {ratio:.3f} of its "
+                                             "tolerance")
+                    worst_fm[dtype] = max(worst_fm.get(dtype, 0.0), ratio)
+                    n_fm += 1
+    gen = torch.Generator(device=dev).manual_seed(7)
+    e = torch.randn(4099, 40, 24, generator=gen, device=dev)[:, 1:, ::2]
+    g = torch.randn(4099, generator=gen, device=dev)
+    got = _one_launch("fm_interaction_bwd", fm_ops.fm_interaction_bwd, e, g)
+    rel = _rel_l2(got, fm_interaction_bwd_ref(e.contiguous(), g))
+    if e.is_contiguous() or not rel <= 1e-6:
+        raise AssertionError(f"(t) fm_interaction backward on a strided "
+                             f"view: relative L2 {rel:.3g}")
+    print(f"(t) fm_interaction backward == plain on {n_fm} panels (D in "
+          f"{{1, 8, 10, {fm_ops.MAX_DIM}}}, F in {{0, 1, 39}}, B up to "
+          "65,536): worst " + ", ".join(
+              f"{str(k_)[6:]} {v_:.4f}" for k_, v_ in worst_fm.items())
+          + " of the tolerance (float32 1e-6 relative L2, 16-bit one "
+          f"rounding step); bitwise equal across launches; a strided view "
+          f"at {rel:.3g}")
+
+    # flash_attention: the forward with lse bitwise equal to the forward
+    # without; the backward kernel within 1e-4 relative L2 (float32) or
+    # max(2e-2, 2 x SDPA's backward) (16-bit) of plain, bitwise repeatable
+    # (16-bit: 2e-2, the floor of the gate max(2e-2, 2 x SDPA's distance);
+    # SDPA's backward is run at the three timed layers below, as one call
+    # per case would build a library plan for each of the 70 shapes)
+    t_fm = time.perf_counter() - t_fm
+    t_fa = time.perf_counter()
+    n_fa, worst_fa = 0, {}
+    for shape in tp.FLASH_SHAPES:
+        h, hkv, sq, skv, causal, window, off = shape
+        for d, dv in FLASH_BWD_WIDTHS:
+            for dtype in dtypes:
+                q, k, v = tp.qkv(2, h, hkv, sq, skv, d, dtype,
+                                 seed=sq * skv + d + dv, device=dev, dv=dv)
+                do = torch.randn(2, h, sq, dv, device=dev,
+                                 generator=torch.Generator(device=dev)
+                                 .manual_seed(d)).to(dtype)
+                where = f"(t) flash_attention backward {shape} D={d} " \
+                    f"Dv={dv} {dtype}"
+                o0 = fa_ops._flash_attention_cuda(q, k, v, causal, window,
+                                                  off)
+                o, lse = fa_ops._flash_attention_cuda(q, k, v, causal, window,
+                                                      off, with_lse=True)
+                o_ref, lse_ref = flash_attention_ref(q, k, v, causal, window,
+                                                     off, return_lse=True)
+                got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                                 window, off)
+                again = fa_ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                                   causal, window, off)
+                want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do,
+                                               causal, window, off)
+                torch.cuda.synchronize()
+                if not _equal(o0, o):
+                    raise AssertionError(f"{where}: the forward's output "
+                                         "moves when it writes lse")
+                fin = torch.isfinite(lse_ref)
+                if not torch.equal(fin, torch.isfinite(lse)) or not bool(
+                        torch.allclose(lse[fin], lse_ref[fin], rtol=1e-5,
+                                       atol=1e-5)):
+                    raise AssertionError(f"{where}: lse differs from plain")
+                if not _bitwise(got, again):
+                    raise AssertionError(f"{where}: two launches differ")
+                if not bool((got[0][~fin] == 0).all()):
+                    raise AssertionError(f"{where}: dq of a row that sees "
+                                         "no key is not 0")
+                rel = _grad_rel(got, want)
+                tol = 1e-4 if dtype == torch.float32 else 2e-2
+                if not rel <= tol:
+                    raise AssertionError(f"{where}: relative L2 {rel:.3g} > "
+                                         f"{tol:.3g}")
+                worst_fa[dtype] = max(worst_fa.get(dtype, 0.0), rel)
+                n_fa += 1
+    print(f"(t) flash_attention backward == plain on {n_fa} cases (groups 1 "
+          f"and 4, (D, Dv) in {FLASH_BWD_WIDTHS}, causal and not, windows "
+          "16/512, offsets, ragged tiles, rows that see no key: dq = 0): "
+          "worst relative L2 " + ", ".join(
+              f"{str(k_)[6:]} {v_:.3g}" for k_, v_ in worst_fa.items())
+          + " (float32 <= 1e-4, 16-bit <= 2e-2); bitwise equal across "
+          "launches; the forward's output bitwise equal with and without lse")
+
+    # times at Gemma-3 1B's training layers (B = 8) and the MLA layer
+    t_fa = time.perf_counter() - t_fa
+    t_at = time.perf_counter()
+    at = {"global": _flash_bwd_at_shape(dev, 0),
+          "local": _flash_bwd_at_shape(dev, 512),
+          "mla_layer": _flash_bwd_at_shape(dev, 0, b=4, h=16, hkv=16, d=192,
+                                           dv=128)}
+    print(f"(t) fm_interaction cases {t_fm:.1f} s, flash cases {t_fa:.1f} "
+          f"s, the three timed layers {time.perf_counter() - t_at:.1f} s")
+    for name, r in at.items():
+        if not r["rel_l2"] <= max(2e-2, 2 * r["library_rel_l2"]):
+            raise AssertionError(f"(t) flash backward at the {name} layer: "
+                                 f"relative L2 {r['rel_l2']:.3g}")
+        print(f"(t) flash_attention backward at the {name} layer: "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA's "
+              f"backward {r['library_ms']:.4f} ms (kernel/SDPA "
+              f"{r['ms'] / r['library_ms']:.2f}), bound {r['bound_ms']:.4f} "
+              f"ms ({r['bound_by']}: {r['flops'] / 1e9:.2f} GFLOP, "
+              f"{r['bytes']} B); relative L2 to plain {r['rel_l2']:.3g} "
+              f"(SDPA {r['library_rel_l2']:.3g})")
+    return at
+
+
+def _profile_names(keys, names) -> list:
+    return sorted({k_ for k_ in keys if any(w in k_.lower() for w in names)})
+
+
+def _recording_steps(step, step_s: list, losses: list):
+    """A loop step (params, opt_state, err, batch) around ``step`` (a cell's
+    step_fn) that records each step's time (host clock, ending in a device
+    sync; the loop's batch making and checkpoints fall outside) and loss."""
+    import torch
+
+    def run(params, opt_state, err, batch):
+        t1 = time.perf_counter()
+        p, o, m = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        losses.append(float(m["loss"]))
+        return p, o, err, m
+    return run
+
+
+def phase_fm_training(tp, dev):
+    """(u) FM training at its published config (39 fields, D = 10, 262,144
+    rows per field) on train_batch (B = 65,536): the FM training path."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.fm_interaction import ops as fm_ops
+    from repro_torch.kernels.fm_interaction.ref import fm_interaction_bwd_ref
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import fm
+    from repro_torch.train import loop
+
+    arch = get_arch("fm")
+    cfg = arch.config
+    cell = steps.build_cell(arch, "train_batch", dev)
+    params, opt0, batch = cell.args
+    b = batch["ids"].shape[0]
+
+    def loss(p, bb):
+        return fm.loss_fn(cfg, p, bb)
+
+    (l_k, _), g_k = loop.value_and_grad(loss, params, batch)  # warm-up
+    ((l_k, _), g_k), launches = _counted(loop.value_and_grad, loss, params,
+                                         batch)
+    want = {"fm_interaction": 1, "fm_interaction_bwd": 1,
+            "segment_reduce": EMBED_SEGMENT_SUMS["recsys"]}
+    if {k_: launches.get(k_, 0) for k_ in want} != want:
+        raise AssertionError(f"(u) launches {launches} != {want} a step")
+    with plain_versions(), plain_segment_sums():
+        ((l_p, _), g_p), plain_launches = _counted(loop.value_and_grad, loss,
+                                                   params, batch)
+    if any(plain_launches.get(k_, 0) for k_ in want):
+        raise AssertionError(f"(u) the plain path launched {plain_launches}")
+    rel = _rel_l2(g_k, g_p)
+    if not (_close(float(l_k), float(l_p), 1e-6) and rel <= 1e-5):
+        raise AssertionError(f"(u) step 1: loss {float(l_k)} vs plain "
+                             f"{float(l_p)}, gradients relative L2 {rel:.3g}")
+    del g_p
+    one, two = (cell.step_fn(params, opt0, batch) for _ in range(2))
+    if not (_bitwise(one[:2], two[:2])
+            and _equal(one[2]["loss"], two[2]["loss"])):
+        raise AssertionError("(u) two runs of step 1 differ")
+    del one, two
+    print(f"(u) fm at its published config ({cfg.param_count()} "
+          f"parameters), train_batch B={b}: step 1 loss {float(l_k):.9g}, "
+          f"plain path {float(l_p):.9g}; gradients relative L2 {rel:.3g} "
+          "(gates 1e-6, 1e-5); step 1 bit for bit across two runs; launches "
+          f"a step {want}")
+
+    # 5 AdamW steps through the loop on fresh click batches
+    step_s, losses = [], []
+    data = synthetic.recsys_batches(cfg.n_fields, cfg.rows_per_field, b,
+                                    seed=1, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        loop.run(loop.TrainLoopConfig(total_steps=5, ckpt_every=5,
+                                      ckpt_dir=d, resume=False),
+                 loop.TrainState(params, opt0, 0),
+                 _recording_steps(cell.step_fn, step_s, losses), data,
+                 log=lambda *a: None)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"(u) losses {losses}")
+    best = min(step_s[1:])
+    print(f"(u) 5 AdamW steps through loop.run: losses {losses}; step time "
+          f"{best:.5f} s (steps 2-5: "
+          f"{', '.join(f'{t:.5f}' for t in step_s[1:])}; step 1 "
+          f"{step_s[0]:.5f}), {b / best:.6g} examples/s; peak memory "
+          f"{peak} B")
+    keys: list = []   # 3 steps: the profiler may miss a window's first
+    groups = phase_profile("(u)", lambda: [cell.step_fn(params, opt0, batch)
+                                           for _ in range(3)],
+                           3 * best, "3 train steps", FM_TRAIN_GROUPS,
+                           keys=keys)
+    bad = _profile_names(keys, SCATTER_NAMES)
+    if bad:
+        raise AssertionError(f"(u) the kernel path's step ran {bad[:5]}")
+    print(f"(u) no index_add / scatter_add / index_put operation or kernel "
+          f"in the step's {len(keys)} profiled names")
+
+    # the backward kernel at the step's shape
+    flat = (batch["ids"].long() % cfg.rows_per_field) + torch.arange(
+        cfg.n_fields, device=dev) * cfg.rows_per_field
+    emb = params["table"][flat]
+    g = torch.randn(b, device=dev, generator=torch.Generator(device=dev)
+                    .manual_seed(3))
+    got, want_ = fm_ops.fm_interaction_bwd(emb, g), \
+        fm_interaction_bwd_ref(emb, g)
+    err = float((got - want_).abs().max())
+    ms = _time_ms(lambda: fm_ops.fm_interaction_bwd(emb, g), 50)
+    plain_ms = _time_ms(lambda: fm_interaction_bwd_ref(emb, g), 10)
+    n_el = emb.numel()
+    nbytes = 2 * n_el * 4 + b * 4        # e in, grad out, g in
+    flops = 3 * n_el                     # s - e, times g, and the sum
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+    print(f"(u) fm_interaction backward at train_batch (B={b}, "
+          f"F={cfg.n_fields}, D={cfg.embed_dim}, float32): {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes); no "
+          "single PyTorch call computes it")
+    calls = groups.get("fm_interaction backward calls", 0)
+    dev_ms = groups["fm_interaction backward"] / calls if calls else None
+    return {
+        "name": "fm_interaction_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/fm_interaction/fm_interaction.cu",
+        "replaces": "src/repro/kernels/fm_interaction/ref.py:12",
+        "launches": launches["fm_interaction_bwd"], "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+        >= flops / F32_FLOPS_PER_S else "operations",
+        "library_ms": None,
+        "note": "no backward Pallas kernel: the reference differentiates "
+                "fm_interaction_ref with XLA off the TPU",
+        "check": "float32 within 1e-6 relative L2 of plain, 16-bit within "
+                 "one rounding step (phase t); the FM step's gradients "
+                 "within 1e-5 (phase u)",
+        "shape": {"B": b, "F": cfg.n_fields, "D": cfg.embed_dim,
+                  "dtype": "float32"},
+        "device_ms_per_step": dev_ms, "step_s": best, "peak_bytes": peak,
+        "launches_per_step": want,
+    }
+
+
+GEMMA_TRAIN_BATCH = 8        # train_4k's batch of 256 cut to one card's
+GEMMA_PEAK_RANGE = (20e9, 45e9)  # (v)'s gate, from PERF.md's prediction
+
+
+def phase_gemma_training(tp, dev):
+    """(v) Gemma-3 1B training at full width and depth (26 layers, d 1152,
+    bfloat16, remat) on train_4k's sequence of 4096, batch cut to 8: the LM
+    training path."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import loop
+
+    arch = get_arch("gemma3-1b")
+    shape = dict(arch.shapes["train_4k"], batch=GEMMA_TRAIN_BATCH)
+    arch = dataclasses.replace(arch, shapes=dict(arch.shapes, train_4k=shape))
+    cfg = arch.config
+    t0 = time.perf_counter()
+    cell = steps.build_cell(arch, "train_4k", dev)
+    params, opt0, batch = cell.args
+    step_fn, cell = cell.step_fn, cell._replace(args=())
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree.leaves(params))
+    if n_params != cfg.param_count() or not cfg.remat or \
+            cell.meta["microbatches"] != 1:
+        raise AssertionError(f"(v) {n_params} parameters (param_count "
+                             f"{cfg.param_count()}), remat {cfg.remat}, "
+                             f"microbatches {cell.meta['microbatches']}")
+    tokens = shape["batch"] * shape["seq"]
+    flops = cell.meta["model_flops"]
+    print(f"(v) gemma3-1b: {n_params} parameters, remat, {shape['batch']} x "
+          f"{shape['seq']} tokens a step ({flops:.4g} model flops, "
+          f"microbatches {cell.meta['microbatches']}); cell made in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def loss(p, bb):
+        return tf.loss_fn(cfg, p, bb)
+
+    ((l_k, _), g_k), launches = _counted(loop.value_and_grad, loss, params,
+                                         batch)
+    fwd_n, bwd_n = lm_flash_launches(cfg)
+    want = {"flash_attention": fwd_n, "flash_attention_bwd": bwd_n,
+            "segment_reduce": EMBED_SEGMENT_SUMS["lm"]}
+    if {k_: launches.get(k_, 0) for k_ in want} != want:
+        raise AssertionError(f"(v) launches {launches} != {want} a step")
+    with plain_versions(), plain_segment_sums():
+        ((l_p, _), g_p), plain_launches = _counted(loop.value_and_grad, loss,
+                                                   params, batch)
+    if any(plain_launches.get(k_, 0) for k_ in want):
+        raise AssertionError(f"(v) the plain path launched {plain_launches}")
+    rel = _rel_l2(g_k, g_p)
+    del g_k
+    with swapped(fa_ops, "flash_attention", sdpa_attention):
+        (l_s, _), g_s = loop.value_and_grad(loss, params, batch)
+    lib_rel = _rel_l2(g_s, g_p)
+    del g_s, g_p
+    if not (_close(float(l_k), float(l_p), 1e-3)
+            and rel <= max(2e-2, 2 * lib_rel)):
+        raise AssertionError(f"(v) step 1: loss {float(l_k)} vs plain "
+                             f"{float(l_p)}, gradients relative L2 {rel:.3g} "
+                             f"> max(2e-2, 2 x the SDPA path's {lib_rel:.3g})")
+    print(f"(v) step 1: loss {float(l_k):.7g}, plain path {float(l_p):.7g}, "
+          f"SDPA path {float(l_s):.7g}; gradients relative L2 to plain "
+          f"{rel:.4g} (the SDPA path's {lib_rel:.4g}; gate max(2e-2, 2 x "
+          f"that)); launches a step {want}")
+    one, two = (step_fn(params, opt0, batch) for _ in range(2))
+    if not (_bitwise(one[:2], two[:2])
+            and _equal(one[2]["loss"], two[2]["loss"])):
+        raise AssertionError("(v) two runs of step 1 differ")
+    del one, two
+    print("(v) step 1 (gradient and AdamW update) bit for bit across two "
+          "runs")
+
+    # 3 AdamW steps through the loop, a bfloat16 checkpoint at step 3; the
+    # loop is handed the only reference to the state, so one copy of the
+    # parameters and AdamW state lives, as in a training job
+    step_s, losses = [], []
+    data = synthetic.lm_batches(cfg.vocab, shape["batch"], shape["seq"],
+                                seed=1, device=dev)
+    start = [loop.TrainState(params, opt0, 0)]
+    del params, opt0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        t_loop = time.perf_counter()
+        final = loop.run(loop.TrainLoopConfig(total_steps=3, ckpt_every=3,
+                                              ckpt_dir=d, resume=False),
+                         start.pop(),
+                         _recording_steps(step_fn, step_s, losses), data,
+                         log=lambda *a: None)
+        loop_s = time.perf_counter() - t_loop
+        peak = torch.cuda.max_memory_allocated()
+        # the bfloat16 parameters back from the checkpoint (its float32
+        # AdamW state takes the path the GNN checkpoints of (s) exercise)
+        t_ck = time.perf_counter()
+        target = {"params": final.params}
+        back = ckpt.restore(d, 3, target)
+        restore_s = time.perf_counter() - t_ck
+        dtype = ckpt.read_manifest(d, 3)["arrays"]["['params']/['embed']"][
+            "dtype"]
+        if dtype != "bfloat16" or not _bitwise(back, target):
+            raise AssertionError(f"(v) the step-3 checkpoint ({dtype}) does "
+                                 "not restore bit for bit")
+    del back, target
+    best = min(step_s)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"(v) losses {losses}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"(v) 3 AdamW steps through loop.run: losses {losses}; step time "
+          f"{best:.4f} s (steps: {', '.join(f'{t:.4f}' for t in step_s)}), "
+          f"{tokens / best:.6g} tokens/s, {flops / best / 1e12:.2f} TFLOP/s "
+          f"of model flops; the loop with its step-3 checkpoint "
+          f"{loop_s:.1f} s, the checkpoint's bfloat16 parameters restored "
+          f"bit for bit in {restore_s:.1f} s; peak memory {peak} B "
+          f"({peak / total:.3f} of the card)")
+    lo, hi = GEMMA_PEAK_RANGE
+    if not lo <= peak <= hi:
+        raise AssertionError(f"(v) peak memory {peak} B outside "
+                             f"{lo:.3g}-{hi:.3g}")
+    keys: list = []
+    groups = phase_profile("(v)", lambda: step_fn(
+        final.params, final.opt_state, batch), best, "train step",
+        LM_TRAIN_GROUPS, keys=keys)
+    bad = _profile_names(keys, INDEX_ADD_NAMES)
+    if bad:
+        raise AssertionError(f"(v) the kernel path's step ran {bad[:5]}")
+    print(f"(v) no index_add / index_put / embedding backward operation or "
+          f"kernel in the step's {len(keys)} profiled names (scatter_add: "
+          f"{_profile_names(keys, ('scatter_add',))[:3]}, CE's one-hot "
+          "gather backward)")
+    return {"launches": want, "step_s": best, "peak_bytes": peak,
+            "loss": float(l_k), "rel_l2": rel, "library_rel_l2": lib_rel,
+            "device_ms_per_step": {k_: groups.get(k_) for k_ in (
+                "flash_attention", "flash_attention backward",
+                "segment_reduce")}}
+
+
+SMOKE_TRAIN_ARCHS = ("gemma3-1b", "deepseek-v2-lite-16b",
+                     "moonshot-v1-16b-a3b", "fm")
+
+
+def phase_smoke_training(tp, dev):
+    """(w) the LM and FM smoke configs' loss and gradients on the card
+    against the CPU; launch/train.main --arch gemma3-1b and fm."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.recsys import fm
+    from repro_torch.train import loop
+
+    worst = 0.0
+    for arch_id in SMOKE_TRAIN_ARCHS:
+        arch = get_arch(arch_id)
+        cfg = arch.smoke
+        gen = torch.Generator().manual_seed(0)
+        if arch.family == "lm":
+            params = tf.init_params(cfg, gen)
+            if cfg.moe:
+                _distinct_experts(cfg, params, gen)
+            b = next(synthetic.lm_batches(cfg.vocab, 2, 64, seed=0))
+
+            def loss(p, bb, cfg=cfg):
+                return tf.loss_fn(cfg, p, bb)
+        else:
+            params = fm.init_params(cfg, gen)
+            b = next(synthetic.recsys_batches(cfg.n_fields,
+                                              cfg.rows_per_field, 64, seed=0))
+
+            def loss(p, bb, cfg=cfg):
+                return fm.loss_fn(cfg, p, bb)
+        out = []
+        for device in ("cpu", dev):
+            p = tree.tree_map(lambda x: x.to(device), params)
+            bb = {k_: v_.to(device) for k_, v_ in b.items()}
+            (lv, _), g_ = loop.value_and_grad(loss, p, bb)
+            out.append((float(lv), tree.tree_map(lambda x: x.cpu(), g_)))
+        (l_cpu, g_cpu), (l_card, g_card) = out
+        rl2 = _rel_l2(g_card, g_cpu)
+        worst = max(worst, abs(l_card - l_cpu) / max(abs(l_cpu), 1.0), rl2)
+        if not (abs(l_card - l_cpu) <= 2e-4 * max(abs(l_cpu), 1.0)
+                and rl2 <= 2e-4):
+            raise AssertionError(f"(w) {arch_id} smoke: card loss {l_card} "
+                                 f"vs CPU {l_cpu}, gradients {rl2}")
+    print(f"(w) the smoke configs of {', '.join(SMOKE_TRAIN_ARCHS)}: card "
+          f"loss and gradients == CPU within 2e-4 (worst {worst:.3g})")
+    with tempfile.TemporaryDirectory() as d:
+        for arch_id in ("gemma3-1b", "fm"):
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                rc = train.main(["--arch", arch_id, "--steps", "4",
+                                 "--ckpt-every", "2", "--ckpt-dir",
+                                 f"{d}/{arch_id}"])
+            if rc != 0 or "[train] finished at step 4" not in out.getvalue():
+                raise AssertionError(f"(w) train.main --arch {arch_id}: {rc} "
+                                     f"{out.getvalue()}")
+            print(f"(w) launch/train.main --arch {arch_id} --steps 4 on the "
+                  "card: finished at step 4")
+
+
 PHASES = ("a", "b", "b2", "b3", "c", "d", "n", "p", "e", "g", "h", "m", "o",
-          "i", "j", "k", "l", "q", "r", "s")
+          "i", "j", "k", "l", "q", "r", "s", "t", "u", "v", "w")
 
 
 def main(argv=None) -> int:
@@ -2700,6 +3342,40 @@ def main(argv=None) -> int:
     if "s" in run:
         segment.setdefault("gnn", {})["launches_per_step"] = timed(
             "s", phase_gnn_archs, tp, dev)
+    flash_bwd = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/"
+                  "flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:31",
+        "note": "no backward Pallas kernel: the reference trains through "
+                "chunked_attention, which XLA differentiates",
+        "check": "float32 within 1e-4 relative L2 of plain, 16-bit within "
+                 "2e-2, bitwise across launches (phase t); Gemma-3 1B's "
+                 "gradients within max(2e-2, 2 x the SDPA path's) (phase v)"}
+    if "t" in run:
+        at = timed("t", phase_train_kernels, tp, dev)
+        g_ = at["global"]
+        flash_bwd.update({k_: g_[k_] for k_ in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")})
+        flash_bwd.update(shape={"B": 8, "H": 4, "Hkv": 1, "S": 4096,
+                                "D": 256, "Dv": 256, "dtype": "bfloat16",
+                                "causal": True},
+                         local_layer=at["local"], mla_layer=at["mla_layer"])
+    if "u" in run:
+        fm_train = timed("u", phase_fm_training, tp, dev)
+        entries.append(fm_train)
+        segment.setdefault("train", {})["fm"] = \
+            fm_train["launches_per_step"]["segment_reduce"]
+    if "v" in run:
+        lm = timed("v", phase_gemma_training, tp, dev)
+        flash_bwd["launches"] = lm["launches"]["flash_attention_bwd"]
+        flash_bwd["gemma_train_step"] = lm
+        segment.setdefault("train", {})["gemma3-1b"] = \
+            lm["launches"]["segment_reduce"]
+    entries.append(flash_bwd)
+    if "w" in run:
+        timed("w", phase_smoke_training, tp, dev)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if leaked:

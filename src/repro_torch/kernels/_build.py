@@ -3,10 +3,10 @@
 Each kernel is one ``.cu`` file with a plain C launcher, compiled for
 ``sm_90a`` into a shared library under ``kernels/_build/`` (listed in
 ``.gitignore``), named by a hash of every ``.cu`` and ``.cuh`` file in the
-kernel's directory, so an edited source or header is never served a stale
-library.  Nothing is built at import time: :func:`load`
-builds at first use, and :func:`build` starts one ``nvcc`` per source, all
-at once.
+source's directory (flash_attention's backward lives beside its
+forward), so an edited source or header is never served a stale library.
+Nothing is built at import time: :func:`load` builds at first use, and
+:func:`build` starts one ``nvcc`` per source, all at once.
 
 The libraries are the port's only compile that outlives a process, so
 they are its compile cache: :func:`enable_compile_cache` points the
@@ -25,7 +25,9 @@ from pathlib import Path
 
 _KERNELS = Path(__file__).resolve().parent
 KERNELS = ("jet_gain", "segment_reduce", "fm_interaction",
-           "flash_attention")  # every kernel source of the port
+           "flash_attention", "flash_attention_bwd")  # every kernel source
+# a source that lives in another kernel's directory
+_DIRS = {"flash_attention_bwd": "flash_attention"}
 BUILD_DIR = _KERNELS / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -74,12 +76,12 @@ def enable_compile_cache(cache_dir) -> CompileCacheStats:
 
 
 def source(name: str) -> Path:
-    return _KERNELS / name / f"{name}.cu"
+    return _KERNELS / _DIRS.get(name, name) / f"{name}.cu"
 
 
 def _library(name: str) -> Path:
     h = hashlib.sha256()
-    for path in sorted((_KERNELS / name).iterdir()):
+    for path in sorted(source(name).parent.iterdir()):
         if path.suffix in (".cu", ".cuh"):
             h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

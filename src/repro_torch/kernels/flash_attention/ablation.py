@@ -83,7 +83,7 @@ def build(names) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         fn = ctypes.CDLL(str(OUT / f"{name}.so")).flash_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
@@ -128,7 +128,7 @@ def main(argv=None) -> int:
 
         def call(fn):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     b, h, hkv, s, s, d, d, 1, window, 0, 1, stream)
+                     None, b, h, hkv, s, s, d, d, 1, window, 0, 1, stream)
             if err != 0:
                 raise RuntimeError(f"launch failed with CUDA error {err}")
 

@@ -138,9 +138,10 @@ __device__ __forceinline__ float group_sum(float x) {
 template <typename T, int DPT>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int h, int hkv,
-             int sq, int skv, int d, int dv, int causal, int window,
-             int q_offset, float scale, int bhs) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int h, int hkv, int sq, int skv, int d,
+             int dv, int causal, int window, int q_offset, float scale,
+             int bhs) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ldq = d + 1;
   const int ldk = k_stride(d, sizeof(T));
@@ -283,13 +284,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (col < dv)
         op[(size_t)(q0 + r) * dv + col] = from_f<T>(acc[i][jj] / l_safe);
     }
+    if (lse != nullptr && cl == 0)
+      lse[(size_t)bh * sq + q0 + r] =
+          l[i] == 0.f ? -INFINITY : m[i] + logf(l[i]);
   }
 }
 
 template <typename T, int DPT>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int h,
-           int hkv, int sq, int skv, int d, int dv, int causal, int window,
-           int q_offset, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int h, int hkv, int sq, int skv, int d, int dv, int causal,
+           int window, int q_offset, cudaStream_t stream) {
   const size_t smem = smem_bytes(d, dv, sizeof(T));
   auto kern = flash_kernel<T, DPT>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -301,31 +305,31 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int h,
   const float scale = (float)(1.0 / std::sqrt((double)d));
   kern<<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), h, hkv, sq, skv, d, dv,
-      causal, window, q_offset, scale, b * h);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, h, hkv, sq, skv, d,
+      dv, causal, window, q_offset, scale, b * h);
   return (int)cudaGetLastError();
 }
 
 // DPT sizes only the output columns, so the CUDA-core kernel is picked by
 // Dv (the q k^T loop runs over D at run time).
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int b,
-             int h, int hkv, int sq, int skv, int d, int dv, int causal,
-             int window, int q_offset, cudaStream_t s) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int b, int h, int hkv, int sq, int skv, int d, int dv,
+             int causal, int window, int q_offset, cudaStream_t s) {
   if (dv <= 16)
-    return launch<T, 1>(q, k, v, o, b, h, hkv, sq, skv, d, dv, causal,
-                        window, q_offset, s);
+    return launch<T, 1>(q, k, v, o, lse, b, h, hkv, sq, skv, d, dv,
+                        causal, window, q_offset, s);
   if (dv <= 32)
-    return launch<T, 2>(q, k, v, o, b, h, hkv, sq, skv, d, dv, causal,
-                        window, q_offset, s);
+    return launch<T, 2>(q, k, v, o, lse, b, h, hkv, sq, skv, d, dv,
+                        causal, window, q_offset, s);
   if (dv <= 64)
-    return launch<T, 4>(q, k, v, o, b, h, hkv, sq, skv, d, dv, causal,
-                        window, q_offset, s);
+    return launch<T, 4>(q, k, v, o, lse, b, h, hkv, sq, skv, d, dv,
+                        causal, window, q_offset, s);
   if (dv <= 128)
-    return launch<T, 8>(q, k, v, o, b, h, hkv, sq, skv, d, dv, causal,
-                        window, q_offset, s);
-  return launch<T, 16>(q, k, v, o, b, h, hkv, sq, skv, d, dv, causal, window,
-                       q_offset, s);
+    return launch<T, 8>(q, k, v, o, lse, b, h, hkv, sq, skv, d, dv,
+                        causal, window, q_offset, s);
+  return launch<T, 16>(q, k, v, o, lse, b, h, hkv, sq, skv, d, dv, causal,
+                       window, q_offset, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -515,10 +519,11 @@ constexpr size_t tc_smem_bytes() {
 template <typename T, int DP, int BK>
 __global__ void __launch_bounds__(kTcThreads)
 flash_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ o, int h, int hkv,
-                int sq, int skv, int d, int dv, int causal, int window,
-                int q_offset, float scale, int bhs, int vec_q, int vec_k,
-                int vec_v, int vec_o) {
+                const T* __restrict__ v, T* __restrict__ o,
+                float* __restrict__ lse, int h, int hkv, int sq, int skv,
+                int d, int dv, int causal, int window, int q_offset,
+                float scale, int bhs, int vec_q, int vec_k, int vec_v,
+                int vec_o) {
   constexpr int LD = DP + 8;     // row stride in elements: 16 B of padding
   constexpr int NT = BK / 8;     // n8 tiles of S per warp
   constexpr int DT = DP / 8;     // n8 tiles of the output per warp
@@ -701,6 +706,10 @@ flash_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
       *reinterpret_cast<uint32_t*>(stage + (g + 8 * r) * LD + j * 8 +
                                    2 * t4) =
           pack<T>(acc[j][2 * r] / l_safe, acc[j][2 * r + 1] / l_safe);
+    const int row = warp * 16 + g + 8 * r;
+    if (lse != nullptr && t4 == 0 && row < qrows)
+      lse[(size_t)bh * sq + q0 + row] =
+          l[r] == 0.f ? -INFINITY : m[r] + logf(l[r]);
   }
   __syncwarp();
   T* orow = op + (size_t)(q0 + warp * 16) * dv;
@@ -714,9 +723,10 @@ flash_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DP, int BK>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
-              int h, int hkv, int sq, int skv, int d, int dv, int causal,
-              int window, int q_offset, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int b, int h, int hkv, int sq, int skv, int d,
+              int dv, int causal, int window, int q_offset,
+              cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<T, DP, BK>();
   auto kern = flash_kernel_tc<T, DP, BK>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -729,32 +739,32 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
   const int es = (int)sizeof(T);
   kern<<<(unsigned)blocks, kTcThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), h, hkv, sq, skv, d, dv,
-      causal, window, q_offset, scale, b * h, vec_bytes(q, d, es),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, h, hkv, sq, skv, d,
+      dv, causal, window, q_offset, scale, b * h, vec_bytes(q, d, es),
       vec_bytes(k, d, es), vec_bytes(v, dv, es), vec_bytes(o, dv, es));
   return (int)cudaGetLastError();
 }
 
 // The instantiation is picked by max(D, Dv): its tiles hold both widths.
 template <typename T>
-int dispatch_tc(const void* q, const void* k, const void* v, void* o, int b,
-                int h, int hkv, int sq, int skv, int d, int dv, int causal,
-                int window, int q_offset, cudaStream_t s) {
+int dispatch_tc(const void* q, const void* k, const void* v, void* o,
+                float* lse, int b, int h, int hkv, int sq, int skv, int d,
+                int dv, int causal, int window, int q_offset, cudaStream_t s) {
   const int w = std::max(d, dv);
   if (w <= 16)
-    return launch_tc<T, 16, 64>(q, k, v, o, b, h, hkv, sq, skv, d, dv,
-                                causal, window, q_offset, s);
+    return launch_tc<T, 16, 64>(q, k, v, o, lse, b, h, hkv, sq, skv, d,
+                                dv, causal, window, q_offset, s);
   if (w <= 32)
-    return launch_tc<T, 32, 64>(q, k, v, o, b, h, hkv, sq, skv, d, dv,
-                                causal, window, q_offset, s);
+    return launch_tc<T, 32, 64>(q, k, v, o, lse, b, h, hkv, sq, skv, d,
+                                dv, causal, window, q_offset, s);
   if (w <= 64)
-    return launch_tc<T, 64, 64>(q, k, v, o, b, h, hkv, sq, skv, d, dv,
-                                causal, window, q_offset, s);
+    return launch_tc<T, 64, 64>(q, k, v, o, lse, b, h, hkv, sq, skv, d,
+                                dv, causal, window, q_offset, s);
   if (w <= 128)
-    return launch_tc<T, 128, 64>(q, k, v, o, b, h, hkv, sq, skv, d, dv,
-                                 causal, window, q_offset, s);
-  return launch_tc<T, 256, 32>(q, k, v, o, b, h, hkv, sq, skv, d, dv, causal,
-                               window, q_offset, s);
+    return launch_tc<T, 128, 64>(q, k, v, o, lse, b, h, hkv, sq, skv, d,
+                                 dv, causal, window, q_offset, s);
+  return launch_tc<T, 256, 32>(q, k, v, o, lse, b, h, hkv, sq, skv, d, dv,
+                               causal, window, q_offset, s);
 }
 
 }  // namespace
@@ -763,12 +773,15 @@ extern "C" int flash_attention_max_head_dim() { return kMaxDim; }
 
 // q (b, h, sq, d), k (b, hkv, skv, d), v (b, hkv, skv, dv), o (b, h, sq,
 // dv); all contiguous, of one type: dtype 0 float32, 1 bfloat16, 2 float16.
-// Returns the CUDA error of the launch (0 on success).
+// lse, where not null, is (b, h, sq) float32: each row's log-sum-exp of its
+// scaled scores, m + log(l), -inf for a row that sees no key (the backward
+// kernel recomputes P from it).  Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int b, int h,
-                                      int hkv, int sq, int skv, int d, int dv,
-                                      int causal, int window, int q_offset,
-                                      int dtype, void* stream) {
+                                      const void* v, void* o, float* lse,
+                                      int b, int h, int hkv, int sq, int skv,
+                                      int d, int dv, int causal, int window,
+                                      int q_offset, int dtype, void* stream) {
   if (b <= 0 || h <= 0 || sq <= 0) return 0;
   if (d < 1 || d > kMaxDim || dv < 1 || dv > kMaxDim || hkv < 1 ||
       h % hkv != 0 || skv < 0)
@@ -776,13 +789,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch<float>(q, k, v, o, b, h, hkv, sq, skv, d, dv, causal,
-                             window, q_offset, s);
+      return dispatch<float>(q, k, v, o, lse, b, h, hkv, sq, skv, d, dv,
+                             causal, window, q_offset, s);
     case 1:
-      return dispatch_tc<__nv_bfloat16>(q, k, v, o, b, h, hkv, sq, skv, d, dv,
-                                        causal, window, q_offset, s);
+      return dispatch_tc<__nv_bfloat16>(q, k, v, o, lse, b, h, hkv, sq, skv, d,
+                                        dv, causal, window, q_offset, s);
     case 2:
-      return dispatch_tc<__half>(q, k, v, o, b, h, hkv, sq, skv, d, dv,
+      return dispatch_tc<__half>(q, k, v, o, lse, b, h, hkv, sq, skv, d, dv,
                                  causal, window, q_offset, s);
     default:
       return (int)cudaErrorInvalidValue;

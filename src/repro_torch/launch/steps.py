@@ -1,11 +1,11 @@
 """Cells of the ported models (counterpart of ``repro.launch.steps``): the
-LM and FM serve cells and the GNN train cells.
+LM, FM and GNN train cells and the LM and FM serve cells.
 
 A cell is a plain callable with example inputs made from a seed, for one
 (arch, shape) pair: ``cell.step_fn(*cell.args)`` runs the step.  The
 reference's cells carry shardings over a device mesh; the port runs on one
-card, so it has none.  LM and FM training wait for gradients through the
-serving-only attention and FM paths (ROADMAP.md, Queue 1).
+card, so it has none: its ``zero1`` tuning (optimizer state sharded over
+the data axis) is a no-op here.
 """
 from __future__ import annotations
 
@@ -126,13 +126,6 @@ def smoke_shapes(arch: Arch) -> dict:
     }
 
 
-def _training_not_ported(arch: Arch, shape_name: str):
-    return NotImplementedError(
-        f"{arch.id} {shape_name}: LM and FM training wait for gradients "
-        "through the serving-only attention and FM paths (ROADMAP.md, "
-        "Queue 1)")
-
-
 def materialize(args, seed: int = 0):
     """Example inputs of the same shapes as ``args`` (trees of tensors):
     every float leaf N(0, 1) * 0.02 from a numpy generator seeded with
@@ -141,8 +134,8 @@ def materialize(args, seed: int = 0):
 
     def one(x):
         if x.dtype.is_floating_point:
-            a = np.random.default_rng(seed).standard_normal(
-                tuple(x.shape), dtype=np.float32) * np.float32(0.02)
+            a = np.asarray(np.random.default_rng(seed).standard_normal(
+                tuple(x.shape), dtype=np.float32) * np.float32(0.02))
             return torch.from_numpy(a).to(device=x.device, dtype=x.dtype)
         return torch.zeros_like(x)
 
@@ -153,8 +146,60 @@ def materialize(args, seed: int = 0):
 # LM cells
 # ---------------------------------------------------------------------------
 
+def lm_microbatches(cfg: tf.LMConfig, batch: int, seq: int,
+                    tuning: dict) -> int:
+    """The reference's gradient-accumulation rule on one device: halve the
+    batch while its activation working set, ~8 float32 buffers of
+    (tokens, width) (MoE widens the width to the active experts'), is over
+    ``mb_budget`` (8e9 bytes) and the halves stay whole; ``microbatches``
+    in ``tuning`` overrides it."""
+    eff_d = cfg.d_model
+    if cfg.moe:
+        eff_d = max(eff_d, (cfg.top_k + cfg.n_shared) * cfg.d_expert)
+    live = batch * seq * eff_d * 4 * 8
+    mb = 1
+    budget = tuning.get("mb_budget", 8e9)
+    while live / mb > budget and mb < batch and batch % (mb * 2) == 0:
+        mb *= 2
+    return tuning.get("microbatches", mb)
+
+
+def make_train_step(loss, microbatches: int = 1,
+                    opt_cfg: adamw.AdamWConfig | None = None):
+    """The train step (params, opt_state, batch) -> (params, opt_state,
+    {"loss", "grad_norm", "lr"}) of ``loss(params, batch) -> (loss,
+    metrics)``: its value and gradient, then one AdamW update.  With
+    ``microbatches`` > 1 the batch is cut into that many equal slices along
+    its first axis, their gradients summed in float32 and averaged, and
+    their losses averaged (the reference's ``lax.scan`` over microbatches).
+    """
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+
+    def train_step(params, opt_state, b):
+        if microbatches == 1:
+            (l, _), grads = value_and_grad(loss, params, b)
+        else:
+            n = next(iter(b.values())).shape[0] // microbatches
+            l = 0.0
+            grads = tree.tree_map(
+                lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                      device=x.device), params)
+            for i in range(microbatches):
+                part = {k: v[i * n:(i + 1) * n] for k, v in b.items()}
+                (li, _), gi = value_and_grad(loss, params, part)
+                grads = tree.tree_map(lambda a, x: a + x.float(), grads, gi)
+                l = l + li
+            l = l / microbatches
+            grads = tree.tree_map(lambda x: x / microbatches, grads)
+        params, opt_state, om = adamw.apply_updates(
+            opt_cfg, params, grads, opt_state)
+        return params, opt_state, {"loss": l, **om}
+
+    return train_step
+
+
 def _lm_cell(arch: Arch, shape_name: str, cfg: tf.LMConfig, shape, params,
-             device) -> Cell:
+             device, tuning: dict) -> Cell:
     kind, batch, seq = shape["kind"], shape["batch"], shape["seq"]
     meta = {
         "kind": kind,
@@ -164,7 +209,11 @@ def _lm_cell(arch: Arch, shape_name: str, cfg: tf.LMConfig, shape, params,
         "tokens": batch * (seq if kind != "decode" else 1),
     }
     if kind == "train":
-        raise _training_not_ported(arch, shape_name)
+        mb = lm_microbatches(cfg, batch, seq, tuning)
+        meta["microbatches"] = mb
+        b = next(synthetic.lm_batches(cfg.vocab, batch, seq, SEED, device))
+        return Cell(make_train_step(lambda p, bb: tf.loss_fn(cfg, p, bb), mb),
+                    (params, adamw.init_state(params), b), meta)
     tokens = next(synthetic.lm_batches(
         cfg.vocab, batch, seq if kind == "prefill" else 1, SEED,
         device))["tokens"]
@@ -254,22 +303,13 @@ def gnn_loss(arch_id: str, cfg, n_graphs: int):
 
 
 def _gnn_cell(arch: Arch, shape_name: str, cfg, shape, params,
-              device) -> Cell:
+              device, tuning: dict) -> Cell:
     n_graphs = shape["n_graphs"]
-    opt_cfg = adamw.AdamWConfig()
-    loss = gnn_loss(arch.id, cfg, n_graphs)
-
-    def train_step(params, opt_state, b):
-        (l, metrics), grads = value_and_grad(loss, params, b)
-        params, opt_state, om = adamw.apply_updates(
-            opt_cfg, params, grads, opt_state)
-        return params, opt_state, {"loss": l, **om}
-
     spec = _gnn_batch_spec(arch.id, shape)
     batch = materialize({k: torch.empty(s, dtype=dt, device=device)
                          for k, (s, dt) in spec.items()}, SEED)
     return Cell(
-        step_fn=train_step,
+        step_fn=make_train_step(gnn_loss(arch.id, cfg, n_graphs)),
         args=(params, adamw.init_state(params),
               with_edge_plan(batch, n_graphs)),
         meta={
@@ -286,13 +326,15 @@ def _gnn_cell(arch: Arch, shape_name: str, cfg, shape, params,
 def materialize_cell(cell: Cell, seed: int = 0):
     """A train cell's (params, opt_state, batch) drawn anew from ``seed``
     by :func:`materialize`; the optimizer state must be *valid* (zero
-    moments), not random — sqrt(random nu) is NaN."""
+    moments), not random — sqrt(random nu) is NaN.  A GNN batch gets its
+    edge plan."""
     params, _, batch = cell.args
     params = materialize(params, seed)
     batch = materialize({k: v for k, v in batch.items() if k != "plan"},
                         seed)
-    return (params, adamw.init_state(params),
-            with_edge_plan(batch, cell.meta["n_graphs"]))
+    if "n_graphs" in cell.meta:
+        batch = with_edge_plan(batch, cell.meta["n_graphs"])
+    return params, adamw.init_state(params), batch
 
 
 # ---------------------------------------------------------------------------
@@ -300,7 +342,7 @@ def materialize_cell(cell: Cell, seed: int = 0):
 # ---------------------------------------------------------------------------
 
 def _fm_cell(arch: Arch, shape_name: str, cfg: fm_lib.FMConfig, shape,
-             params, device) -> Cell:
+             params, device, tuning: dict) -> Cell:
     kind = shape["kind"]
     meta = {
         "kind": kind,
@@ -310,7 +352,10 @@ def _fm_cell(arch: Arch, shape_name: str, cfg: fm_lib.FMConfig, shape,
         "tokens": shape.get("batch", 1),
     }
     if kind == "train":
-        raise _training_not_ported(arch, shape_name)
+        batch = next(synthetic.recsys_batches(
+            cfg.n_fields, cfg.rows_per_field, shape["batch"], SEED, device))
+        return Cell(make_train_step(lambda p, b: fm_lib.loss_fn(cfg, p, b)),
+                    (params, adamw.init_state(params), batch), meta)
     if kind == "serve":
         ids = next(synthetic.recsys_batches(
             cfg.n_fields, cfg.rows_per_field, shape["batch"], SEED,
@@ -335,14 +380,18 @@ def _fm_cell(arch: Arch, shape_name: str, cfg: fm_lib.FMConfig, shape,
 
 
 def build_cell(arch: Arch, shape_name: str, device=None, smoke: bool = False,
-               params=None) -> Cell:
-    """The cell of ``arch`` at ``shape_name``: an LM or FM serve cell, or a
-    GNN train cell (args: params, optimizer state, batch).
+               params=None, tuning: dict | None = None) -> Cell:
+    """The cell of ``arch`` at ``shape_name``: a train cell (args: params,
+    optimizer state, batch) or an LM or FM serve cell.
 
     ``smoke`` takes the reduced config and shapes.  ``params`` defaults to
     the model's ``init_params`` from a generator seeded with ``SEED`` on
     ``device`` (default: the card); the example inputs come from ``SEED``.
+    ``tuning`` is the reference's, for LMs: ``config`` (fields of the
+    config to replace), ``microbatches``, ``mb_budget``; ``zero1`` is
+    taken and does nothing on one card.
     """
+    tuning = tuning or {}
     device = resolve_device(device)
     if smoke:
         arch = dataclasses.replace(arch, shapes=smoke_shapes(arch))
@@ -358,9 +407,11 @@ def build_cell(arch: Arch, shape_name: str, device=None, smoke: bool = False,
         make = _gnn_cell
     else:
         cfg = arch.smoke if smoke else arch.config
+        if arch.family == "lm" and "config" in tuning:
+            cfg = dataclasses.replace(cfg, **tuning["config"])
         module = {"lm": tf, "recsys": fm_lib}[arch.family]
         make = _lm_cell if arch.family == "lm" else _fm_cell
     if params is None:
         gen = torch.Generator(device=device).manual_seed(SEED)
         params = module.init_params(cfg, gen)
-    return make(arch, shape_name, cfg, shape, params, device)
+    return make(arch, shape_name, cfg, shape, params, device, tuning)

@@ -1,14 +1,15 @@
-"""Training launcher (counterpart of ``repro.launch.train``), for the GNNs.
+"""Training launcher (counterpart of ``repro.launch.train``).
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch meshgraphnet \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
         --steps 200 --ckpt-dir ck [--device cuda|cpu]
 
 The reference's flags, plus ``--device`` (default ``cuda``, which needs a
 card).  Like the reference it trains the arch's smoke config at its smoke
-shape (``--smoke`` is on and cannot be turned off) on one fixed synthetic
-batch, through the fault-tolerant loop (checkpoints, resume, straggler
-watchdog); full width is ``steps.build_cell(..., smoke=False)``.  LM and FM
-training are not ported yet (ROADMAP.md, Queue 1): their ``--arch`` raises.
+shape (``--smoke`` is on and cannot be turned off) through the
+fault-tolerant loop (checkpoints, resume, straggler watchdog): an LM on a
+stream of synthetic token batches, FM on a stream of click batches, a GNN
+on one fixed synthetic batch.  Full width is ``steps.build_cell(...,
+smoke=False)``.  Every arch of the registry trains.
 """
 from __future__ import annotations
 
@@ -17,14 +18,24 @@ import os
 import tempfile
 
 from repro_torch.configs import ARCH_IDS, get_arch
+from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import build_cell, materialize_cell
 from repro_torch.train import loop as train_loop
 
 
-def make_data(cell, seed: int = 0):
-    """GNN batches: one fixed synthetic batch, re-materialized from ``seed``
-    (full-batch training), its edge plan built once."""
+def make_data(arch, cell, smoke: bool, seed: int = 0, device="cpu"):
+    """Batch iterator matched to the cell's batch, made on ``device``: LM
+    token batches, FM click batches, or one fixed GNN batch re-materialized
+    from ``seed`` (full-batch training), its edge plan built once."""
+    cfg = arch.smoke if smoke else arch.config
+    batch = cell.args[2]
+    if arch.family == "lm":
+        b, s = batch["tokens"].shape
+        return synthetic.lm_batches(cfg.vocab, b, s, seed, device)
+    if arch.family == "recsys":
+        return synthetic.recsys_batches(cfg.n_fields, cfg.rows_per_field,
+                                        batch["ids"].shape[0], seed, device)
     fixed = materialize_cell(cell, seed=seed)[2]
 
     def gen():
@@ -50,19 +61,19 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     arch = get_arch(args.arch)
-    if arch.family != "gnn":
-        raise NotImplementedError(
-            f"{args.arch}: LM and FM training are not ported yet; they wait "
-            "for gradients through the serving-only attention and FM paths "
-            "(ROADMAP.md, Queue 1)")
     shape = args.shape
-    if shape == "train_4k":
+    if arch.family == "gnn" and shape == "train_4k":
         shape = "full_graph_sm"
+    if arch.family == "recsys" and shape == "train_4k":
+        shape = "train_batch"
     device = resolve_device(args.device)
     cell = build_cell(arch, shape, device, smoke=args.smoke)
+    if cell.meta["kind"] != "train":
+        raise ValueError(f"{args.arch} {shape} is a {cell.meta['kind']} "
+                         "shape: use launch/serve.py for inference shapes")
 
     params, opt_state, _ = materialize_cell(cell, seed=args.seed)
-    data = make_data(cell, seed=args.seed)
+    data = make_data(arch, cell, args.smoke, seed=args.seed, device=device)
 
     def step(params, opt_state, err, batch):
         p, o, m = cell.step_fn(params, opt_state, batch)

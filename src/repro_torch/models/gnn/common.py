@@ -30,36 +30,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.segment_reduce import ops as sr
+from repro_torch.models.gather import (  # noqa: F401 (re-exported)
+    SortedIndex, gather_nodes, scatter_mean, scatter_sum, sorted_index)
 from repro_torch.models.layers import dense_init
-
-
-class SortedIndex(NamedTuple):
-    """An (E,) index in [0, n] with its stable sorted order."""
-
-    index: torch.Tensor   # (E,) int32, in the data's order
-    order: torch.Tensor   # (E,) int32: index[order] is non-decreasing
-    ids: torch.Tensor     # (E,) int32: index[order]
-    counts: torch.Tensor  # (n,) float32: rows with each id < n
-
-
-def sorted_index(index: torch.Tensor, n: int,
-                 presorted: bool = False) -> SortedIndex:
-    """Sort ``index`` (values in [0, n]; n, the ghost, is dropped by every
-    sum) once.  ``presorted`` takes an index that must already be
-    non-decreasing, and raises ``ValueError`` if it is not."""
-    index = index.to(torch.int32)
-    if presorted:
-        if index.numel() > 1 and not bool((index[1:] >= index[:-1]).all()):
-            raise ValueError("index must be non-decreasing")
-        ids, order = index, torch.arange(index.numel(), dtype=torch.int32,
-                                         device=index.device)
-    else:
-        ids, order = torch.sort(index, stable=True)
-        order = order.to(torch.int32)
-    bounds = torch.searchsorted(
-        ids, torch.arange(n + 1, dtype=torch.int32, device=ids.device))
-    return SortedIndex(index, order, ids, (bounds[1:] - bounds[:-1]).float())
 
 
 class EdgePlan(NamedTuple):
@@ -109,62 +82,6 @@ def with_plan(batch: GraphBatch) -> GraphBatch:
 
 def plan_of(batch: GraphBatch) -> EdgePlan:
     return with_plan(batch).plan
-
-
-def _gather(x, index):
-    """x (N, ...) at (E,) indices in [0, N]; the ghost index N reads a zero
-    row."""
-    xz = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
-    return xz.index_select(0, index)
-
-
-def _segment_sum(values, order, ids, n: int):
-    """values (E, ...) summed by ``ids`` after the sort ``order``: (n, ...),
-    rows with id >= n dropped."""
-    rows = values.reshape(values.shape[0], -1).index_select(0, order)
-    out = sr.segment_sum_sorted(rows, ids, n)
-    return out.reshape((n,) + tuple(values.shape[1:]))
-
-
-class _ScatterSum(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, values, index, order, ids, n):
-        ctx.save_for_backward(index)
-        return _segment_sum(values, order, ids, n)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (index,) = ctx.saved_tensors
-        return _gather(grad, index), None, None, None, None
-
-
-class _GatherNodes(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, index, order, ids):
-        ctx.save_for_backward(order, ids)
-        ctx.n = x.shape[0]
-        return _gather(x, index)
-
-    @staticmethod
-    def backward(ctx, grad):
-        order, ids = ctx.saved_tensors
-        return _segment_sum(grad, order, ids, ctx.n), None, None, None
-
-
-def scatter_sum(values, index: SortedIndex, n: int):
-    """values (E, ...), index in [0, n] -> (n, ...) (ghost dropped)."""
-    return _ScatterSum.apply(values, index.index, index.order, index.ids, n)
-
-
-def scatter_mean(values, index: SortedIndex, n: int):
-    s = scatter_sum(values, index, n)
-    cnt = index.counts[:n]
-    return s / torch.clamp(cnt, min=1.0)[:, None]
-
-
-def gather_nodes(x, index: SortedIndex):
-    """x (N, ...) gathered at (E,) indices in [0, N] (ghost row = zeros)."""
-    return _GatherNodes.apply(x, index.index, index.order, index.ids)
 
 
 def mlp_init(gen: torch.Generator, dims, dtype=torch.float32,

@@ -4,7 +4,10 @@ Counterpart of ``repro.models.recsys.fm``: plain functions over a dict of
 tensors ``{"table" (V, D), "linear" (V,), "bias" ()}``.  Lookups index a
 single hashed table with per-field offsets, and the second-order term is
 the fm_interaction kernel (``kernels/fm_interaction``; its plain version on
-the CPU).
+the CPU).  In training the lookups go through ``models/gather.py``: one
+sorted index of the batch's flat ids serves ``table`` and ``linear``, and
+each table's gradient is one segment_reduce sum; fm_interaction's gradient
+is its backward kernel.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels.fm_interaction import ops
+from repro_torch.models.gather import embedding, sorted_index
 from repro_torch.models.layers import embed_init
 
 
@@ -54,8 +58,11 @@ def _flat_ids(cfg: FMConfig, ids, fields: int):
 def forward(cfg: FMConfig, params, ids):
     """ids (B, F) integer per-field raw ids -> scores (B,) float32."""
     flat = _flat_ids(cfg, ids, cfg.n_fields)                 # (B, F)
-    emb = params["table"][flat]                              # (B, F, D)
-    lin = params["linear"][flat]                             # (B, F)
+    index = None
+    if torch.is_grad_enabled() and params["table"].requires_grad:
+        index = sorted_index(flat.reshape(-1), cfg.vocab_total, counts=False)
+    emb = embedding(params["table"], flat, index)            # (B, F, D)
+    lin = embedding(params["linear"], flat, index)           # (B, F)
     second = ops.fm_interaction(emb)
     return params["bias"] + torch.sum(lin, -1) + second.float()
 

@@ -19,6 +19,13 @@ decode  : GQA keeps a k, v cache per layer, attention by
           arrays).
 MoE     : ``models/moe.py`` in place of the dense FFN, in plain PyTorch as
           the reference computes it outside any kernel.
+training: ``loss_fn`` (the reference's sequence-chunked cross entropy) over
+          ``hidden_states``.  Attention's gradient is flash_attention's
+          backward kernel (the reference differentiates chunked_attention);
+          the embedding lookup's is a segment_reduce sum
+          (``models/gather.py``).  With ``cfg.remat`` each layer runs under
+          ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
+          with nothing saveable, and so does each CE chunk.
 """
 from __future__ import annotations
 
@@ -26,10 +33,12 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import ops as flash
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models.gather import embedding
 from repro_torch.models.layers import (
     apply_rope, dense_init, embed_init, rmsnorm, swiglu,
 )
@@ -231,28 +240,86 @@ def _ffn(cfg: LMConfig, lp, h, groups: int = 0):
     return y.reshape(h.shape), aux
 
 
+def _block(cfg: LMConfig, lp, x, window: int, positions):
+    """One layer: (x out, MoE aux, the attention's cache entries)."""
+    attention = _mla_attention if cfg.attn_kind == "mla" else _gqa_attention
+    o, kv = attention(cfg, lp, rmsnorm(x, lp["ln1"]), window, positions)
+    x = x + o
+    y, a = _ffn(cfg, lp, rmsnorm(x, lp["ln2"]), cfg.moe_groups)
+    return x + y, a, kv
+
+
 def _trunk(cfg: LMConfig, params, tokens, cache=None):
     """Embed and run every layer over the whole sequence; layer i's cache
     entries (GQA: k, v; MLA: ckv, krope) go to ``cache[...][i]`` when a
     cache is given.  Returns the last hidden states (B, S, D), before the
-    final norm, and the sum of the layers' MoE aux losses."""
+    final norm, and the sum of the layers' MoE aux losses.  With
+    ``cfg.remat``, no cache and gradients on, each layer is checkpointed:
+    only its input is kept, and the backward pass runs it again."""
     b, s = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = embedding(params["embed"], tokens)
     positions = torch.arange(s, device=x.device).expand(b, s)
     names = ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
-    attention = _mla_attention if cfg.attn_kind == "mla" else _gqa_attention
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     aux = 0.0
     for i, window in enumerate(cfg.window_pattern().tolist()):
         lp = _layer(params, i)
-        o, kv = attention(cfg, lp, rmsnorm(x, lp["ln1"]), window, positions)
-        x = x + o
-        if cache is not None:
-            for name, t in zip(names, kv):
-                cache[name][i, ..., :s, :] = t
-        y, a = _ffn(cfg, lp, rmsnorm(x, lp["ln2"]), cfg.moe_groups)
-        x = x + y
+        if remat:
+            x, a, _ = checkpoint(_block, cfg, lp, x, window, positions,
+                                 use_reentrant=False)
+        else:
+            x, a, kv = _block(cfg, lp, x, window, positions)
+            if cache is not None:
+                for name, t in zip(names, kv):
+                    cache[name][i, ..., :s, :] = t
         aux = aux + a
     return x, aux
+
+
+def hidden_states(cfg: LMConfig, params, tokens):
+    """Transformer trunk -> (final hidden (B, S, D) after the final norm,
+    aux float32 scalar)."""
+    x, aux = _trunk(cfg, params, tokens)
+    return rmsnorm(x, params["final_ln"]), torch.as_tensor(
+        aux, dtype=torch.float32, device=x.device)
+
+
+def _chunk_ce(xs, labels, embed_f):
+    """(sum of the chunk's token losses, its count of labelled tokens): the
+    (B, C, V) float32 logits are formed here and nowhere else."""
+    logits = xs.float() @ embed_f.T
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels != -1).float()
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def loss_fn(cfg: LMConfig, params, batch, loss_chunk: int = 512):
+    """Sequence-chunked cross entropy (the reference's): the (B, chunk, V)
+    logits block is the only vocab-sized live tensor, and each chunk is
+    checkpointed, so the backward pass forms it again.  Returns
+    (ce + aux_loss_coef * aux, {"ce", "aux"})."""
+    x, aux = hidden_states(cfg, params, batch["tokens"])
+    b, s, d = x.shape
+    labels = batch["labels"]
+    c = min(loss_chunk, s)
+    if s % c:
+        raise ValueError(f"sequence {s} is not a multiple of the CE chunk "
+                         f"{c}")
+    embed_f = params["embed"].float()
+    nll = torch.zeros((), device=x.device)
+    cnt = torch.zeros((), device=x.device)
+    for j in range(s // c):
+        part = (x[:, j * c:(j + 1) * c], labels[:, j * c:(j + 1) * c],
+                embed_f)
+        if torch.is_grad_enabled():
+            n_j, c_j = checkpoint(_chunk_ce, *part, use_reentrant=False)
+        else:
+            n_j, c_j = _chunk_ce(*part)
+        nll = nll + n_j
+        cnt = cnt + c_j
+    ce = nll / torch.clamp(cnt, min=1.0)
+    return ce + cfg.aux_loss_coef * aux, {"ce": ce, "aux": aux}
 
 
 def forward(cfg: LMConfig, params, tokens):
@@ -369,7 +436,7 @@ def decode_step(cfg: LMConfig, params, cache, tokens):
     if pos >= max_len:
         raise ValueError(f"the cache is full: {pos} of {max_len} positions "
                          "used")
-    x = params["embed"][tokens.long()]
+    x = embedding(params["embed"], tokens)
     for i, window in enumerate(cfg.window_pattern().tolist()):
         lp = _layer(params, i)
         h = rmsnorm(x, lp["ln1"])

@@ -105,6 +105,7 @@ def run(cfg: TrainLoopConfig, state: TrainState, train_step,
     stragglers = 0
     history = []
     params, opt_state = state.params, state.opt_state
+    del state  # each step's state replaces the last: one copy is kept
     for step_i in range(start_step, cfg.total_steps):
         if step_i == cfg.fail_at_step:
             raise SimulatedFailure(f"injected failure at step {step_i}")

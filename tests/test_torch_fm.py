@@ -159,9 +159,12 @@ def test_serve_cells_on_cpu():
         if name != "retrieval_cand":
             assert torch.equal(out, fm.forward(arch.smoke, params,
                                                cell.args[1]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.build_cell(arch, "train_batch", device="cpu", smoke=True,
-                         params=params)
+    cell = steps.build_cell(arch, "train_batch", device="cpu", smoke=True,
+                            params=params)
+    new_params, _, metrics = cell.step_fn(*cell.args)
+    assert cell.meta["kind"] == "train" and np.isfinite(float(
+        metrics["loss"]))
+    assert new_params["table"].shape == params["table"].shape
 
 
 def test_config_and_data_match_reference():

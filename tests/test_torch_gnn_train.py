@@ -261,7 +261,7 @@ def test_gnn_cell_matches_reference(arch_id, shape):
 
 def test_train_main_on_cpu(tmp_path, capsys):
     """launch/train.main --device cpu trains a GNN's smoke config through
-    the loop and its checkpoints; an LM or FM arch raises."""
+    the loop and its checkpoints, and an LM's and FM's as well."""
     d = str(tmp_path / "ck")
     assert train.main(["--arch", "schnet", "--shape", "molecule", "--steps",
                        "3", "--ckpt-every", "2", "--ckpt-dir", d,
@@ -271,8 +271,10 @@ def test_train_main_on_cpu(tmp_path, capsys):
     keys = ckpt.read_manifest(d, 2)["arrays"]
     assert "['opt']/['step']" in keys and "['params']/['embed']" in keys
     for arch_id in ("gemma3-1b", "fm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train.main(["--arch", arch_id, "--device", "cpu"])
+        d = str(tmp_path / arch_id)
+        assert train.main(["--arch", arch_id, "--steps", "1", "--ckpt-dir",
+                           d, "--device", "cpu"]) == 0
+        assert ckpt.latest_step(d) == 1
 
 
 def test_segment_sums_per_step(monkeypatch):

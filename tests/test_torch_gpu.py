@@ -4,7 +4,10 @@ against the CPU run, the committed golden results and, for the sorted
 backend, the dense backend, the serving models (FM, Gemma-3 1B and
 DeepSeek-V2-Lite's MLA + MoE) against their CPU runs, and GNN training:
 scatter_sum and gather_nodes with their backward passes on the
-segment_reduce kernel, and each GNN's train step against the CPU's.
+segment_reduce kernel, and each GNN's train step against the CPU's; LM
+and FM training: the backward kernels of flash_attention and
+fm_interaction against their plain versions, and each LM's and FM's smoke
+train step against the CPU's.
 
 Wrapper contracts: every wrapper takes strided views (one launch per
 call), segment_reduce takes bfloat16 and float16 (float32 sums, one
@@ -477,4 +480,129 @@ def test_gnn_training_on_card_matches_cpu(cuda, arch_id):
     one, two = (step(p_card, adamw.init_state(p_card), zero, b_card)
                 for _ in range(2))
     assert all(torch.equal(a, b) for a, b in
+               zip(tree.leaves(one[:2]), tree.leaves(two[:2])))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", tp.FLASH_SHAPES[:4])
+def test_flash_attention_backward_matches_plain(cuda, shape, dtype):
+    """The forward with its log-sum-exp (output bitwise unchanged) and the
+    backward kernel against ``flash_attention_bwd_ref`` from the plain
+    forward: relative L2 1e-4 in float32, 2e-2 in bfloat16; two launches
+    bitwise equal; the autograd Function launches each kernel once."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref)
+
+    h, hkv, sq, skv, causal, window, off = shape
+    for d, dv in ((64, 64), (192, 128), (256, 256)):
+        q, k, v = tp.qkv(2, h, hkv, sq, skv, d, dtype, seed=d, device=cuda,
+                         dv=dv)
+        do = torch.randn(2, h, sq, dv, device=cuda).to(dtype)
+        o0 = fa_ops._flash_attention_cuda(q, k, v, causal, window, off)
+        o, lse = fa_ops._flash_attention_cuda(q, k, v, causal, window, off,
+                                              with_lse=True)
+        assert torch.equal(o0, o)
+        o_ref, lse_ref = flash_attention_ref(q, k, v, causal, window, off,
+                                             return_lse=True)
+        want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, causal,
+                                       window, off)
+        lq, lk, lv = (x.clone().requires_grad_(True) for x in (q, k, v))
+        before = dict(kernels.launch_counts)
+        out = fa_ops.flash_attention(lq, lk, lv, causal, window, off)
+        out.backward(do)
+        torch.cuda.synchronize()
+        for name in ("flash_attention", "flash_attention_bwd"):
+            assert kernels.launch_counts[name] == before.get(name, 0) + 1
+        got = (lq.grad, lk.grad, lv.grad)
+        again = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                           window, off)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, a)
+            rel = float((g.float() - w.float()).norm() / w.float().norm())
+            assert rel <= tol, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_fm_interaction_backward_matches_plain(cuda, dtype):
+    """The backward kernel against ``fm_interaction_bwd_ref``: float32
+    within 1e-6 relative L2, 16-bit within one rounding step; two launches
+    bitwise equal; a strided view."""
+    from repro_torch.kernels.fm_interaction.ref import fm_interaction_bwd_ref
+
+    for b, f, d in ((1, 0, 10), (257, 1, 1), (4096, 39, 10), (3, 2, 12288)):
+        e = torch.randn(b, f, d, device=cuda).to(dtype)
+        g = torch.randn(b, device=cuda)
+        got, again = (fm_ops.fm_interaction_bwd(e, g) for _ in range(2))
+        want = fm_interaction_bwd_ref(e, g)
+        assert torch.equal(got, again) and got.dtype == dtype
+        if got.numel() == 0:
+            continue
+        w = want.float()
+        if dtype == torch.float32:
+            assert float((got - w).norm() / w.norm()) <= 1e-6
+        else:
+            step = torch.finfo(dtype).eps * w.abs() + torch.finfo(dtype).tiny
+            assert bool(((got.float() - w).abs() <= step).all())
+    e = torch.randn(999, 40, 24, device=cuda).to(dtype)[:, 1:, ::2]
+    g = torch.randn(999, device=cuda)
+    torch.testing.assert_close(fm_ops.fm_interaction_bwd(e, g),
+                               fm_interaction_bwd_ref(e.contiguous(), g),
+                               rtol=1e-2, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch_id", ["gemma3-1b", "deepseek-v2-lite-16b",
+                                     "moonshot-v1-16b-a3b", "fm"])
+def test_lm_and_fm_training_on_card_matches_cpu(cuda, arch_id):
+    """One smoke train step's loss and gradients on the card within 2e-4
+    of the CPU's; the launches a step as ``chip_smoke`` counts them; the
+    step (gradient and AdamW update) bit for bit across two runs, but for
+    the MoE configs, whose dispatch adds with ``scatter_add_``."""
+    import chip_smoke
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.recsys import fm
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    arch = get_arch(arch_id)
+    cfg = arch.smoke
+    gen = torch.Generator().manual_seed(0)
+    if arch.family == "lm":
+        params = tf.init_params(cfg, gen)
+        b = next(synthetic.lm_batches(cfg.vocab, 2, 64, seed=0))
+
+        def loss(p, bb):
+            return tf.loss_fn(cfg, p, bb)
+        want = {"flash_attention": chip_smoke.lm_flash_launches(cfg)[0],
+                "flash_attention_bwd": chip_smoke.lm_flash_launches(cfg)[1]}
+    else:
+        params = fm.init_params(cfg, gen)
+        b = next(synthetic.recsys_batches(cfg.n_fields, cfg.rows_per_field,
+                                          64, seed=0))
+
+        def loss(p, bb):
+            return fm.loss_fn(cfg, p, bb)
+        want = {"fm_interaction": 1, "fm_interaction_bwd": 1}
+    want["segment_reduce"] = chip_smoke.EMBED_SEGMENT_SUMS[arch.family]
+    (l_cpu, _), g_cpu = loop.value_and_grad(loss, params, b)
+    p_card = tree.tree_map(lambda x: x.to(cuda), params)
+    b_card = {k: v.to(cuda) for k, v in b.items()}
+    kernels.reset_launch_counts()
+    (l_card, _), g_card = loop.value_and_grad(loss, p_card, b_card)
+    torch.cuda.synchronize()
+    assert {k: kernels.launch_counts[k] for k in want} == want
+    torch.testing.assert_close(l_card.cpu(), l_cpu, rtol=2e-4, atol=2e-4)
+    for a, c in zip(tree.leaves(g_card), tree.leaves(g_cpu)):
+        torch.testing.assert_close(a.cpu(), c, rtol=2e-4, atol=2e-4)
+    if getattr(cfg, "moe", False):
+        return
+    step = steps.make_train_step(loss)
+    one, two = (step(p_card, adamw.init_state(p_card), b_card)
+                for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in
                zip(tree.leaves(one[:2]), tree.leaves(two[:2])))

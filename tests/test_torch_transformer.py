@@ -198,7 +198,9 @@ def test_serve_cells_on_cpu():
         assert cache["len"] == shape["seq"]
         assert cell.meta["model_flops"] == jsteps.lm_model_flops(
             jarch.smoke, shape)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.build_cell(arch, "train_4k", device="cpu", smoke=True,
-                         params=params)
+    cell = steps.build_cell(arch, "train_4k", device="cpu", smoke=True,
+                            params=params)
+    _, _, metrics = cell.step_fn(*cell.args)
+    assert cell.meta["kind"] == "train" and cell.meta["microbatches"] == 1
+    assert bool(torch.isfinite(metrics["loss"]))
 
