@@ -8,10 +8,11 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
 
   (a) card and build: the card's name and power limit; build every kernel
       (one nvcc per source, all at once) and print ptxas's report of each,
-      with the registers and spill bytes of every flash_attention
-      instantiation; where ``cuobjdump`` exists, the count of tensor-core
-      (HMMA) instructions in each flash_attention kernel, which must be
-      nonzero for the bfloat16 and float16 ones.
+      with the registers and spill bytes of every instantiation of
+      flash_attention's forward and its tensor-core backward; where
+      ``cuobjdump`` exists, the count of tensor-core (HMMA) instructions in
+      each of their kernels, which must be nonzero for the bfloat16 and
+      float16 ones (flash_kernel_tc, dkdv_tc, dq_tc).
   (b) jet_gain against plain: its plain PyTorch version on random panels
       (D in {1, 4, 6, 8, 31, 32, 33, 37, 300}: the lane-group path up to 32
       and the histogram path above; k in {2, 64, 1000}, T in {1, 4}, with
@@ -163,13 +164,15 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       (D in {1, 8, 10, MAX_DIM}, F in {0, 1, 39}, B up to 65,536, float32
       within 1e-6 relative L2, bfloat16 and float16 within one rounding
       step of the output, a strided view) and flash_attention's (the
-      shapes of (k) at (D, Dv) in {16/16, 64/64, 128/128, 192/128,
+      shapes of (k) at (D, Dv) in {16/16, 36/8, 64/64, 128/128, 192/128,
       256/256}: float32 within 1e-4 relative L2 of plain for dq, dk, dv,
-      16-bit within 2e-2; dq = 0 for rows that see no key); bitwise equal
-      across two launches; the forward with its log-sum-exp bitwise equal
-      to the forward without; the backward, its plain version and SDPA's
-      backward timed at Gemma-3 1B's training layers (8, 4, 4096, 256),
-      windows 0 and 512, and at the MLA layer.
+      16-bit within 2e-2; dq = 0 for rows that see no key; float32 on the
+      CUDA-core kernels, bfloat16 and float16 on the tensor cores' route);
+      bitwise equal across two launches; unaligned fm views; the forward
+      with its log-sum-exp bitwise equal to the forward without; the
+      backward, its plain version and SDPA's backward timed at Gemma-3 1B's
+      training layers (8, 4, 4096, 256), windows 0 and 512, and at the MLA
+      layer.
   (u) FM training at its published config (39 fields, D = 10, 262,144
       rows per field), train_batch B = 65,536: step 1 on the kernel and
       plain paths (loss within 1e-6 relative, gradients within 1e-5
@@ -188,11 +191,14 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       segment_reduce 1 launches a step; 3 AdamW steps through
       ``train/loop.run``, the checkpoint's bfloat16 parameters restored bit
       for bit; step time, tokens/s, TFLOP/s of model flops, peak memory
-      (gated on PERF.md's 20-45 GB); the step under torch.profiler (idle share, top
-      operations, no index_add, index_put or embedding backward).
+      (gated on PERF.md's 20-45 GB); the step under torch.profiler (idle
+      share, top operations, the flash backward's share of the step, no
+      index_add, index_put or embedding backward).
   (w) the smoke configs of gemma3-1b, deepseek-v2-lite-16b (MLA + MoE),
       moonshot-v1-16b-a3b (GQA + MoE) and fm: loss and gradients on the
-      card within 2e-4 of the CPU's; ``launch/train.main --arch gemma3-1b``
+      card within 2e-4 of the CPU's; two MoE train steps bit for bit equal
+      on the card, with segment_reduce launched ``lm_segment_sums`` times a
+      step (the dispatch's sums); ``launch/train.main --arch gemma3-1b``
       and ``--arch fm`` on the card.
   The script ends by checking that no jax or repro (JAX package) module was
   imported.  ``--phases`` runs a subset, for debugging; such a run prints no
@@ -249,6 +255,15 @@ def lm_flash_launches(cfg) -> tuple[int, int]:
 # (``models/gather.py``): one for each embedding table's gradient, the LM's
 # ``embed`` and FM's ``table`` and ``linear``
 EMBED_SEGMENT_SUMS = {"lm": 1, "recsys": 2}
+
+
+def lm_segment_sums(cfg) -> int:
+    """segment_reduce calls in one LM train step (``models/gather.py``):
+    the embedding's gradient, and in each MoE layer the combine's sum (run
+    again in the layer's recompute when ``cfg.remat`` is on) and the
+    dispatch gather's gradient."""
+    moe = cfg.n_layers * ((2 if cfg.remat else 1) + 1) if cfg.moe else 0
+    return EMBED_SEGMENT_SUMS["lm"] + moe
 
 
 def nvidia_smi() -> str:
@@ -332,26 +347,29 @@ def phase_build():
         ptxas = [ln for ln in log.splitlines() if "ptxas info" in ln]
         print(f"(a) {name} ptxas: " + " | ".join(ptxas))
     print(f"(a) kernels built in {build_s:.1f} s")
-    # flash_attention: registers and spills of each instantiation, and its
-    # tensor-core instructions
-    funcs = _ptxas_functions(_build.build_logs.get("flash_attention", ""))
-    for name, pretty in zip(funcs, _demangle(list(funcs))):
-        f = funcs[name]
-        print(f"(a) flash_attention {_short(pretty)}: "
-              f"{f.get('registers')} registers, {f.get('spill_stores')} "
-              f"bytes spill stores, {f.get('spill_loads')} bytes spill loads")
-    hmma = _hmma_counts(_build._library("flash_attention"))
-    if hmma is None:
-        print("(a) flash_attention HMMA count: no cuobjdump, not measured")
-        return
-    for name, pretty in zip(hmma, _demangle(list(hmma))):
-        tc = "flash_kernel_tc" in name
-        print(f"(a) flash_attention {_short(pretty)}: {hmma[name]} "
-              "HMMA instructions")
-        if tc and hmma[name] == 0:
-            raise AssertionError(f"(a) {pretty}: no tensor-core instruction")
-    if not any("flash_kernel_tc" in n for n in hmma):
-        raise AssertionError("(a) no flash_kernel_tc in the flash library")
+    # flash_attention's forward and its tensor-core backward: registers and
+    # spills of each instantiation, and its tensor-core instructions
+    for lib, tc_names in (("flash_attention", ("flash_kernel_tc",)),
+                          ("flash_attention_bwd_tc", ("dkdv_tc", "dq_tc"))):
+        funcs = _ptxas_functions(_build.build_logs.get(lib, ""))
+        for name, pretty in zip(funcs, _demangle(list(funcs))):
+            f = funcs[name]
+            print(f"(a) {lib} {_short(pretty)}: {f.get('registers')} "
+                  f"registers, {f.get('spill_stores')} bytes spill stores, "
+                  f"{f.get('spill_loads')} bytes spill loads")
+        hmma = _hmma_counts(_build._library(lib))
+        if hmma is None:
+            print(f"(a) {lib} HMMA count: no cuobjdump, not measured")
+            continue
+        for name, pretty in zip(hmma, _demangle(list(hmma))):
+            print(f"(a) {lib} {_short(pretty)}: {hmma[name]} HMMA "
+                  "instructions")
+            if any(t in name for t in tc_names) and hmma[name] == 0:
+                raise AssertionError(f"(a) {pretty}: no tensor-core "
+                                     "instruction")
+        for t in tc_names:
+            if not any(t in n for n in hmma):
+                raise AssertionError(f"(a) no {t} in the {lib} library")
 
 
 def phase_kernel_vs_plain(tp, dev):
@@ -2684,7 +2702,8 @@ INDEX_ADD_NAMES = ("index_add", "index_put", "indexing_backward",
                    "embedding_dense_backward")
 SEGMENT_KERNELS = ("splits_pass", "tiles_pass", "carry_pass")
 LM_TRAIN_GROUPS = (("flash_attention", ("flash_kernel",)),
-                   ("flash_attention backward", ("dkdv_kernel", "dq_kernel",
+                   ("flash_attention backward", ("dkdv_tc", "dq_tc",
+                                                 "dkdv_kernel", "dq_kernel",
                                                  "delta_kernel")),
                    ("segment_reduce", SEGMENT_KERNELS),
                    ("matrix product", ("gemm", "gemv", "cutlass", "nvjet",
@@ -2695,12 +2714,35 @@ FM_TRAIN_GROUPS = (("fm_interaction", ("fm_kernel",)),
                    ("row gathers (index_select)", ("gather_kernel",
                                                    "indexselect")),
                    ("sort", ("sort",)))
-FLASH_BWD_WIDTHS = ((16, 16), (64, 64), (128, 128), (192, 128), (256, 256))
+FLASH_BWD_WIDTHS = ((16, 16), (36, 8), (64, 64), (128, 128), (192, 128),
+                    (256, 256))
 
 
 def _grad_rel(got, want) -> float:
     """The largest relative L2 distance of dq, dk and dv."""
     return max(_rel_l2(g.float(), w.float()) for g, w in zip(got, want))
+
+
+def _kernel_ms(call, names, reps: int = 20) -> dict:
+    """Each named kernel's mean device time (ms) over the launches that
+    torch.profiler saw in ``reps`` calls of ``call`` (late in a long run it
+    may miss the first few); empty if it saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key and e.count:
+                out[name] = out.get(name, 0.0) + \
+                    e.self_device_time_total / 1e3 / e.count
+    return out
 
 
 def _flash_bwd_at_shape(dev, window: int, b=8, h=4, hkv=1, s=4096, d=256,
@@ -2723,7 +2765,11 @@ def _flash_bwd_at_shape(dev, window: int, b=8, h=4, hkv=1, s=4096, d=256,
                                        with_lse=True)
     o_ref, lse_ref = flash_attention_ref(q, k, v, True, window,
                                          return_lse=True)
+    before = ops.bwd_launches["flash_attention_bwd_tc"]
     got = ops.flash_attention_bwd(q, k, v, o, lse, do, True, window)
+    if ops.bwd_launches["flash_attention_bwd_tc"] != before + 1:
+        raise AssertionError("(t) the bfloat16 backward did not take the "
+                             "tensor cores' kernels")
     want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, True, window)
     # the library yardstick: PyTorch's fused attention and its backward
     lq, lk, lv = (x.detach().requires_grad_(True) for x in (q, k, v))
@@ -2739,6 +2785,9 @@ def _flash_bwd_at_shape(dev, window: int, b=8, h=4, hkv=1, s=4096, d=256,
         q, k, v, o, lse, do, True, window), 2)
     library_ms = _time_ms(lambda: torch.autograd.grad(
         out, (lq, lk, lv), do, retain_graph=True), 3)
+    split = _kernel_ms(lambda: ops.flash_attention_bwd(
+        q, k, v, o, lse, do, True, window), ("delta_kernel", "dkdv_tc",
+                                             "dq_tc"))
     # q, k, v, o, do in and dq, dk, dv out (2 bytes each), lse in (4); the
     # gradient's products: S = q k^T (2 D), dP = do v^T (2 Dv), dV = P^T do
     # (2 Dv), dQ = dS k (2 D), dK = dS^T q (2 D) a visible pair
@@ -2749,6 +2798,7 @@ def _flash_bwd_at_shape(dev, window: int, b=8, h=4, hkv=1, s=4096, d=256,
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bytes": nbytes, "flops": flops,
             "max_abs_err": err, "rel_l2": rel, "library_rel_l2": lib_rel,
+            "source": "flash_attention_bwd_tc", "kernel_ms": split,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
             >= flops / BF16_FLOPS_PER_S else "operations"}
 
@@ -2808,23 +2858,43 @@ def phase_train_kernels(tp, dev):
     if e.is_contiguous() or not rel <= 1e-6:
         raise AssertionError(f"(t) fm_interaction backward on a strided "
                              f"view: relative L2 {rel:.3g}")
+    # contiguous views whose base is 4 (2) bytes past 16-byte alignment:
+    # the staged copies' unaligned heads and tails
+    unaligned = []
+    for dtype in dtypes:
+        flat = torch.randn(257 * 39 * 10 + 1, generator=gen,
+                           device=dev).to(dtype)
+        e = flat[1:].view(257, 39, 10)
+        got = _one_launch("fm_interaction_bwd", fm_ops.fm_interaction_bwd, e,
+                          g[:257])
+        want = fm_interaction_bwd_ref(e, g[:257])
+        ok = e.data_ptr() % 16 != 0 and (
+            _rel_l2(got, want) <= 1e-6 if dtype == torch.float32 else bool(
+                ((got.float() - want.float()).abs()
+                 <= torch.finfo(dtype).eps * want.float().abs()
+                 + torch.finfo(dtype).tiny).all()))
+        if not ok:
+            raise AssertionError(f"(t) fm_interaction backward on an "
+                                 f"unaligned {dtype} view")
+        unaligned.append(str(dtype)[6:])
     print(f"(t) fm_interaction backward == plain on {n_fm} panels (D in "
           f"{{1, 8, 10, {fm_ops.MAX_DIM}}}, F in {{0, 1, 39}}, B up to "
           "65,536): worst " + ", ".join(
               f"{str(k_)[6:]} {v_:.4f}" for k_, v_ in worst_fm.items())
           + " of the tolerance (float32 1e-6 relative L2, 16-bit one "
           f"rounding step); bitwise equal across launches; a strided view "
-          f"at {rel:.3g}")
+          f"at {rel:.3g}; unaligned views ({', '.join(unaligned)}) within "
+          "the tolerance")
 
     # flash_attention: the forward with lse bitwise equal to the forward
     # without; the backward kernel within 1e-4 relative L2 (float32) or
     # max(2e-2, 2 x SDPA's backward) (16-bit) of plain, bitwise repeatable
     # (16-bit: 2e-2, the floor of the gate max(2e-2, 2 x SDPA's distance);
     # SDPA's backward is run at the three timed layers below, as one call
-    # per case would build a library plan for each of the 70 shapes)
+    # per case would build a library plan for each of the 126 cases)
     t_fm = time.perf_counter() - t_fm
     t_fa = time.perf_counter()
-    n_fa, worst_fa = 0, {}
+    n_fa, worst_fa, sources = 0, {}, {}
     for shape in tp.FLASH_SHAPES:
         h, hkv, sq, skv, causal, window, off = shape
         for d, dv in FLASH_BWD_WIDTHS:
@@ -2842,8 +2912,14 @@ def phase_train_kernels(tp, dev):
                                                       off, with_lse=True)
                 o_ref, lse_ref = flash_attention_ref(q, k, v, causal, window,
                                                      off, return_lse=True)
+                before = dict(fa_ops.bwd_launches)
                 got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, causal,
                                                  window, off)
+                took = [r for r, n in fa_ops.bwd_launches.items()
+                        if n != before.get(r, 0)]
+                if took != [fa_ops.BWD_SOURCES[dtype]]:
+                    raise AssertionError(f"{where}: took {took}")
+                sources[str(dtype)[6:]] = took[0]
                 again = fa_ops.flash_attention_bwd(q, k, v, o, lse, do,
                                                    causal, window, off)
                 want = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do,
@@ -2875,7 +2951,9 @@ def phase_train_kernels(tp, dev):
           "worst relative L2 " + ", ".join(
               f"{str(k_)[6:]} {v_:.3g}" for k_, v_ in worst_fa.items())
           + " (float32 <= 1e-4, 16-bit <= 2e-2); bitwise equal across "
-          "launches; the forward's output bitwise equal with and without lse")
+          "launches; the forward's output bitwise equal with and without "
+          "lse; kernels " + ", ".join(f"{k_} {v_}" for k_, v_ in
+                                       sources.items()))
 
     # times at Gemma-3 1B's training layers (B = 8) and the MLA layer
     t_fa = time.perf_counter() - t_fa
@@ -2890,13 +2968,17 @@ def phase_train_kernels(tp, dev):
         if not r["rel_l2"] <= max(2e-2, 2 * r["library_rel_l2"]):
             raise AssertionError(f"(t) flash backward at the {name} layer: "
                                  f"relative L2 {r['rel_l2']:.3g}")
-        print(f"(t) flash_attention backward at the {name} layer: "
+        print(f"(t) flash_attention backward at the {name} layer "
+              f"({r['source']}): "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA's "
               f"backward {r['library_ms']:.4f} ms (kernel/SDPA "
               f"{r['ms'] / r['library_ms']:.2f}), bound {r['bound_ms']:.4f} "
               f"ms ({r['bound_by']}: {r['flops'] / 1e9:.2f} GFLOP, "
               f"{r['bytes']} B); relative L2 to plain {r['rel_l2']:.3g} "
-              f"(SDPA {r['library_rel_l2']:.3g})")
+              f"(SDPA {r['library_rel_l2']:.3g}); device ms a launch by "
+              "kernel: " + (", ".join(f"{k_} {v_:.4f}" for k_, v_ in
+                                       r["kernel_ms"].items())
+                            or "not measured"))
     return at
 
 
@@ -3178,6 +3260,11 @@ def phase_gemma_training(tp, dev):
     groups = phase_profile("(v)", lambda: step_fn(
         final.params, final.opt_state, batch), best, "train step",
         LM_TRAIN_GROUPS, keys=keys)
+    bwd_ms = groups.get("flash_attention backward")
+    if bwd_ms is not None:
+        print(f"(v) flash_attention's backward (tensor cores): {bwd_ms:.2f} "
+              f"ms of device time a step, {bwd_ms / 1e3 / best:.4f} of the "
+              f"{best:.4f} s step")
     bad = _profile_names(keys, INDEX_ADD_NAMES)
     if bad:
         raise AssertionError(f"(v) the kernel path's step ran {bad[:5]}")
@@ -3206,12 +3293,13 @@ def phase_smoke_training(tp, dev):
     from repro_torch import tree
     from repro_torch.configs import get_arch
     from repro_torch.data import synthetic
-    from repro_torch.launch import train
+    from repro_torch.launch import steps, train
     from repro_torch.models import transformer as tf
     from repro_torch.models.recsys import fm
+    from repro_torch.optim import adamw
     from repro_torch.train import loop
 
-    worst = 0.0
+    worst, repeated = 0.0, []
     for arch_id in SMOKE_TRAIN_ARCHS:
         arch = get_arch(arch_id)
         cfg = arch.smoke
@@ -3238,6 +3326,21 @@ def phase_smoke_training(tp, dev):
             (lv, _), g_ = loop.value_and_grad(loss, p, bb)
             out.append((float(lv), tree.tree_map(lambda x: x.cpu(), g_)))
         (l_cpu, g_cpu), (l_card, g_card) = out
+        if arch.family == "lm" and cfg.moe:
+            # the MoE dispatch's sums run on segment_reduce in a fixed
+            # order: a step (gradient and AdamW update) repeats bit for bit
+            step = steps.make_train_step(loss)
+            (one, two), launches = _counted(lambda: [
+                step(p, adamw.init_state(p), bb) for _ in range(2)])
+            want = 2 * lm_segment_sums(cfg)
+            if not (_bitwise(one[:2], two[:2])
+                    and _equal(one[2]["loss"], two[2]["loss"])):
+                raise AssertionError(f"(w) {arch_id} smoke: two runs of a "
+                                     "MoE train step differ")
+            if launches.get("segment_reduce", 0) != want:
+                raise AssertionError(f"(w) {arch_id} smoke: segment_reduce "
+                                     f"launches {launches} != {want}")
+            repeated.append(arch_id)
         rl2 = _rel_l2(g_card, g_cpu)
         worst = max(worst, abs(l_card - l_cpu) / max(abs(l_cpu), 1.0), rl2)
         if not (abs(l_card - l_cpu) <= 2e-4 * max(abs(l_cpu), 1.0)
@@ -3245,7 +3348,10 @@ def phase_smoke_training(tp, dev):
             raise AssertionError(f"(w) {arch_id} smoke: card loss {l_card} "
                                  f"vs CPU {l_cpu}, gradients {rl2}")
     print(f"(w) the smoke configs of {', '.join(SMOKE_TRAIN_ARCHS)}: card "
-          f"loss and gradients == CPU within 2e-4 (worst {worst:.3g})")
+          f"loss and gradients == CPU within 2e-4 (worst {worst:.3g}); two "
+          "MoE train steps bit for bit equal on the card "
+          f"({', '.join(repeated)}; segment_reduce launched lm_segment_sums "
+          "times a step)")
     with tempfile.TemporaryDirectory() as d:
         for arch_id in ("gemma3-1b", "fm"):
             with contextlib.redirect_stdout(io.StringIO()) as out:

@@ -3,8 +3,9 @@
 Each kernel is one ``.cu`` file with a plain C launcher, compiled for
 ``sm_90a`` into a shared library under ``kernels/_build/`` (listed in
 ``.gitignore``), named by a hash of every ``.cu`` and ``.cuh`` file in the
-source's directory (flash_attention's backward lives beside its
-forward), so an edited source or header is never served a stale library.
+source's directory (flash_attention's two backward sources live beside
+its forward and share its ``mma.cuh``), so an edited source or header is
+never served a stale library.
 Nothing is built at import time: :func:`load` builds at first use, and
 :func:`build` starts one ``nvcc`` per source, all at once.
 
@@ -25,9 +26,11 @@ from pathlib import Path
 
 _KERNELS = Path(__file__).resolve().parent
 KERNELS = ("jet_gain", "segment_reduce", "fm_interaction",
-           "flash_attention", "flash_attention_bwd")  # every kernel source
-# a source that lives in another kernel's directory
-_DIRS = {"flash_attention_bwd": "flash_attention"}
+           "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_tc")  # every kernel source
+# sources that live in another kernel's directory
+_DIRS = {"flash_attention_bwd": "flash_attention",
+         "flash_attention_bwd_tc": "flash_attention"}
 BUILD_DIR = _KERNELS / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -74,8 +74,8 @@ def build(names) -> dict:
         path = OUT / f"{name}.cu"
         path.write_text(src)
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-             str(OUT / f"{name}.so"), str(path)],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(SOURCE.parent),
+             "-o", str(OUT / f"{name}.so"), str(path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     fns = {}
     for name, proc in procs.items():

@@ -29,8 +29,10 @@
 // H=Hkv=16, S=4096, D=192, Dv=128) 2*D + 2*Dv flops a pair: 343.68 GFLOP,
 // 0.348 ms, against 336 MB (0.100 ms).
 //
-// flash_kernel_tc (bfloat16, float16): FlashAttention-2 on the tensor cores.
-// Four warps own 16 query rows each.  Per kv tile of kTcBk keys:
+// flash_kernel_tc (bfloat16, float16): FlashAttention-2 on the tensor cores,
+// built from mma.cuh's helpers (which the tensor-core backward,
+// flash_attention_bwd_tc.cu, shares).  Four warps own 16 query rows each.
+// Per kv tile of kTcBk keys:
 //   - S = q k^T with mma.sync m16n8k16 (input-type operands read from shared
 //     memory with ldmatrix, float32 accumulators), then scaled by 1/sqrt(D)
 //     in float32 (exact where that is a power of two, as at D = 16, 64 or
@@ -82,6 +84,8 @@
 #include <cmath>
 #include <cstdint>
 
+#include "mma.cuh"
+
 namespace {
 
 constexpr int kBq = 64;        // query rows per block
@@ -91,21 +95,6 @@ constexpr int kRows = 4;       // query rows per row group (kBq / 16)
 constexpr int kCols = 4;       // score columns per lane (kBk / 16)
 constexpr int kMaxDim = 256;
 constexpr int kLdp = kBk + 1;  // row stride of the P tile (floats)
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half(x);
-}
 
 // Row stride of the K tile in elements: an odd number of 32-bit words, so
 // the 16 rows read at one column by a half-warp fall in distinct banks.
@@ -339,176 +328,6 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 constexpr int kTcWarps = 4;
 constexpr int kTcThreads = kTcWarps * 32;
 constexpr int kTcBq = 16 * kTcWarps;  // query rows per block, 16 per warp
-constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// one copy of N bytes into shared memory; the bytes past src_bytes are zeros
-template <int N>
-__device__ __forceinline__ void cp_async(unsigned dst, const void* src,
-                                         int src_bytes) {
-  if constexpr (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-                 "l"(src), "r"(src_bytes)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
-                 "l"(src), "n"(N), "r"(src_bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// c += a b for one m16n8k16 tile, float32 accumulators
-template <typename T>
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1);
-template <>
-__device__ __forceinline__ void mma<__nv_bfloat16>(float (&c)[4],
-                                                   const uint32_t (&a)[4],
-                                                   uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-template <>
-__device__ __forceinline__ void mma<__half>(float (&c)[4],
-                                            const uint32_t (&a)[4],
-                                            uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <typename T2>
-__device__ __forceinline__ uint32_t bits(T2 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// (x, y) rounded to the input type, packed as one 32-bit operand register
-template <typename T>
-__device__ __forceinline__ uint32_t pack(float x, float y);
-template <>
-__device__ __forceinline__ uint32_t pack<__nv_bfloat16>(float x, float y) {
-  return bits(__floats2bfloat162_rn(x, y));
-}
-template <>
-__device__ __forceinline__ uint32_t pack<__half>(float x, float y) {
-  return bits(__floats2half2_rn(x, y));
-}
-
-// (x, y) = hi + lo with hi the rounding of (x, y) to the input type and lo
-// the rounding of the remainder (x - hi is exact in float32)
-template <typename T>
-__device__ __forceinline__ void split(float x, float y, uint32_t& hi,
-                                      uint32_t& lo);
-template <>
-__device__ __forceinline__ void split<__nv_bfloat16>(float x, float y,
-                                                     uint32_t& hi,
-                                                     uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
-template <>
-__device__ __forceinline__ void split<__half>(float x, float y, uint32_t& hi,
-                                              uint32_t& lo) {
-  const __half2 h = __floats2half2_rn(x, y);
-  const float2 hf = __half22float2(h);
-  hi = bits(h);
-  lo = bits(__floats2half2_rn(x - hf.x, y - hf.y));
-}
-
-// The largest copy, in bytes, that divides both a row of d elements and the
-// alignment of p: 16, 8 or 4 (cp.async), else 2 (plain loads and stores).
-inline int vec_bytes(const void* p, int d, int elem_bytes) {
-  const unsigned long long a = reinterpret_cast<unsigned long long>(p);
-  for (int v = 16; v >= 4; v /= 2)
-    if ((d * elem_bytes) % v == 0 && a % v == 0) return v;
-  return 2;
-}
-
-// rows [0, rows) of a (rows, d) tile at src into shared memory with row
-// stride LD, zero-filled past `valid` rows and past column d up to DP
-template <typename T, int DP, int LD, int VEC>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int rows,
-                                          int valid, int d) {
-  constexpr int kPer = VEC / (int)sizeof(T);  // elements per copy
-  constexpr int kCpr = DP / kPer;              // copies per row
-  for (int idx = threadIdx.x; idx < rows * kCpr; idx += kTcThreads) {
-    const int r = idx / kCpr;
-    const int c = (idx - r * kCpr) * kPer;
-    const bool in = r < valid && c < d;
-    if constexpr (VEC >= 4) {
-      cp_async<VEC>(smem_u32(dst + r * LD + c),
-                    in ? src + (size_t)r * d + c : src, in ? VEC : 0);
-    } else {
-      dst[r * LD + c] = in ? src[(size_t)r * d + c] : from_f<T>(0.f);
-    }
-  }
-}
-
-template <typename T, int DP, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int rows,
-                                          int valid, int d, int vec) {
-  switch (vec) {
-    case 16: load_rows<T, DP, LD, 16>(dst, src, rows, valid, d); break;
-    case 8: load_rows<T, DP, LD, 8>(dst, src, rows, valid, d); break;
-    case 4: load_rows<T, DP, LD, 4>(dst, src, rows, valid, d); break;
-    default: load_rows<T, DP, LD, 2>(dst, src, rows, valid, d); break;
-  }
-}
-
-// rows [0, valid) of a warp's 16 staged output rows to global memory
-template <typename T, int DP, int LD, int VEC>
-__device__ __forceinline__ void store_rows(T* dst, const T* src, int valid,
-                                           int d, int lane) {
-  constexpr int kPer = VEC / (int)sizeof(T);
-  constexpr int kCpr = DP / kPer;
-  for (int idx = lane; idx < 16 * kCpr; idx += 32) {
-    const int r = idx / kCpr;
-    const int c = (idx - r * kCpr) * kPer;
-    if (r >= valid || c >= d) continue;
-    const T* s = src + r * LD + c;
-    T* g = dst + (size_t)r * d + c;
-    if constexpr (VEC == 16)
-      *reinterpret_cast<uint4*>(g) = *reinterpret_cast<const uint4*>(s);
-    else if constexpr (VEC == 8)
-      *reinterpret_cast<uint2*>(g) = *reinterpret_cast<const uint2*>(s);
-    else if constexpr (VEC == 4)
-      *reinterpret_cast<uint32_t*>(g) = *reinterpret_cast<const uint32_t*>(s);
-    else
-      *g = *s;
-  }
-}
 
 template <typename T, int DP, int BK>
 constexpr size_t tc_smem_bytes() {
@@ -558,12 +377,15 @@ flash_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
     kt_begin = (qpos_first - window + 1) / BK;
   if (causal) kt_end = qpos_last < 0 ? 0 : min(nk, qpos_last / BK + 1);
 
-  load_tile<T, DP, LD>(qs, qp + (size_t)q0 * d, kTcBq, qrows, d, vec_q);
+  load_tile<T, DP, LD, kTcThreads>(qs, qp + (size_t)q0 * d, kTcBq, qrows, d,
+                                   vec_q);
   if (kt_begin < kt_end) {
     const size_t row = (size_t)kt_begin * BK;
     const int valid = min(BK, skv - kt_begin * BK);
-    load_tile<T, DP, LD>(ks, kp + row * d, BK, valid, d, vec_k);
-    load_tile<T, DP, LD>(vs, vp + row * dv, BK, valid, dv, vec_v);
+    load_tile<T, DP, LD, kTcThreads>(ks, kp + row * d, BK, valid, d,
+                                     vec_k);
+    load_tile<T, DP, LD, kTcThreads>(vs, vp + row * dv, BK, valid, dv,
+                                     vec_v);
   }
   cp_async_commit();
 
@@ -589,10 +411,10 @@ flash_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
     if (kt + 1 < kt_end) {  // the next tile's copy overlaps this tile's work
       const size_t row = (size_t)(kt + 1) * BK;
       const int valid = min(BK, skv - (kt + 1) * BK);
-      load_tile<T, DP, LD>(ks + (st ^ 1) * BK * LD, kp + row * d, BK, valid, d,
-                           vec_k);
-      load_tile<T, DP, LD>(vs + (st ^ 1) * BK * LD, vp + row * dv, BK, valid,
-                           dv, vec_v);
+      load_tile<T, DP, LD, kTcThreads>(ks + (st ^ 1) * BK * LD, kp + row * d,
+                                       BK, valid, d, vec_k);
+      load_tile<T, DP, LD, kTcThreads>(vs + (st ^ 1) * BK * LD, vp + row * dv,
+                                       BK, valid, dv, vec_v);
     }
     cp_async_commit();
     cp_async_wait<1>();  // everything but the copy just issued has landed
@@ -714,12 +536,7 @@ flash_kernel_tc(const T* __restrict__ q, const T* __restrict__ k,
   __syncwarp();
   T* orow = op + (size_t)(q0 + warp * 16) * dv;
   const int valid = min(16, qrows - warp * 16);
-  switch (vec_o) {
-    case 16: store_rows<T, DP, LD, 16>(orow, stage, valid, dv, lane); break;
-    case 8: store_rows<T, DP, LD, 8>(orow, stage, valid, dv, lane); break;
-    case 4: store_rows<T, DP, LD, 4>(orow, stage, valid, dv, lane); break;
-    default: store_rows<T, DP, LD, 2>(orow, stage, valid, dv, lane); break;
-  }
+  store_tile<T, DP, LD, 16, 32>(orow, stage, valid, dv, lane, vec_o);
 }
 
 template <typename T, int DP, int BK>

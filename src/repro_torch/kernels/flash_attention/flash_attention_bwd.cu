@@ -1,4 +1,6 @@
-// flash_attention_bwd: the backward pass of flash_attention on Hopper.
+// flash_attention_bwd: the backward pass of flash_attention on Hopper, for
+// float32 inputs (bfloat16 and float16 take the tensor-core kernels of
+// flash_attention_bwd_tc.cu).
 //
 // Replaces no TPU kernel: the reference has no backward Pallas kernel.  It
 // trains through chunked_attention (src/repro/models/attention.py:31), which
@@ -17,8 +19,8 @@
 // key has lse = -inf and P = 0, so its dq is 0.  FlashAttention-2's
 // backward: P is recomputed tile by tile from q, k and lse; nothing of size
 // (Sq, Skv) is stored.  S is recomputed as the forward's variant computes
-// it: float32 inputs are scaled before the product (the CUDA-core forward),
-// 16-bit ones after it (the tensor-core forward).
+// it: float32 inputs are scaled before the product, as the CUDA-core
+// forward scales them.
 //
 // Three kernels, no atomics, every sum in a fixed order, so a result is
 // bitwise the same from launch to launch:
@@ -35,22 +37,16 @@
 //     causal tiles first; q and do stay in shared memory, kv tiles of 32
 //     keys pass through; dS through shared memory, dQ += dS k in registers
 //     (4 rows x D / 16 columns a thread).
-// Everything is float32 on CUDA cores: inputs are widened when staged into
-// shared memory, outputs rounded once to the input type.
+// Everything is float32 on CUDA cores (TF32 would not keep float32's
+// precision).
 //
 // Bound: operations.  The gradient needs, per visible (query, key) pair,
 // S = q k^T (2 D), dP = do v^T (2 Dv), dV = P^T do (2 Dv), dQ = dS k (2 D)
-// and dK = dS^T q (2 D) flops: 6 D + 4 Dv, 2.5 times the forward's.  At
-// Gemma-3 1B's training layer (B=8, H=4, Hkv=1, S=4096, D=Dv=256, bf16,
-// causal) that is 687.36 GFLOP, 0.695 ms at the bf16 tensor-core rate,
-// against 336 MB of inputs and outputs (0.100 ms).  The two kernels do
-// 14 D a pair at D = Dv (S and dP are computed in both), on CUDA cores at
-// float32 FMA rate, with shared-memory loads (six per eight FMAs in the S
-// loop) as the limit: a tensor-core (mma.sync, then wgmma) version is later
-// work.  Shared memory at D = Dv = 256: 214 KB (dkdv) and 206 KB (dq), one
-// block per SM.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
+// and dK = dS^T q (2 D) flops: 6 D + 4 Dv, 2.5 times the forward's, at
+// the float32 rate of the CUDA cores (67 TFLOP/s).  The two kernels do 14 D
+// a pair at D = Dv (S and dP are computed in both), with shared-memory
+// loads (six per eight FMAs in the S loop) as the limit.  Shared memory at
+// D = Dv = 256: 214 KB (dkdv) and 206 KB (dq), one block per SM.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -62,39 +58,19 @@ constexpr int kBq = 64;        // query rows per tile
 constexpr int kBk = 32;        // keys per tile
 constexpr int kMaxDim = 256;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half(x);
-}
-
 // An odd row stride (in floats) of at least w: the 16 rows that a half-warp
 // reads at one column fall in distinct banks.
 __host__ __device__ inline int odd(int w) { return w | 1; }
 
 // rows [0, rows) of a (*, width) row-major matrix at src into shared memory
 // as float32 with row stride ld, times mul; rows past `valid` are zeros
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int rows,
+__device__ __forceinline__ void stage(float* dst, const float* src, int rows,
                                       int valid, int width, int ld,
                                       float mul) {
   for (int idx = threadIdx.x; idx < rows * width; idx += kThreads) {
     const int r = idx / width;
     const int c = idx - r * width;
-    dst[r * ld + c] = r < valid ? to_f(src[(size_t)r * width + c]) * mul : 0.f;
+    dst[r * ld + c] = r < valid ? src[(size_t)r * width + c] * mul : 0.f;
   }
 }
 
@@ -105,18 +81,17 @@ __device__ __forceinline__ bool masked(int kpos, int qpos, int skv,
 }
 
 // Dl[r] = sum_j do[r, j] o[r, j] in float32, one warp per row
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
              float* __restrict__ delta, long long rows, int dv) {
   const long long r =
       (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (r >= rows) return;
-  const T* op = o + r * dv;
-  const T* dp = dout + r * dv;
+  const float* op = o + r * dv;
+  const float* dp = dout + r * dv;
   float acc = 0.f;
-  for (int j = lane; j < dv; j += 32) acc += to_f(op[j]) * to_f(dp[j]);
+  for (int j = lane; j < dv; j += 32) acc += op[j] * dp[j];
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, s);
@@ -130,14 +105,14 @@ size_t dkdv_smem(int d, int dv) {
 }
 
 // DPT: columns per lane, 16 * DPT >= max(D, Dv)
-template <typename T, int DPT>
+template <int DPT>
 __global__ void __launch_bounds__(kThreads)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ dout,
+dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            T* __restrict__ dk, T* __restrict__ dv, int h, int hkv, int sq,
-            int skv, int d, int dvw, int causal, int window, int q_offset,
-            float scale, int prescale) {
+            float* __restrict__ dk, float* __restrict__ dv, int h, int hkv,
+            int sq, int skv, int d, int dvw, int causal, int window,
+            int q_offset, float scale) {
   extern __shared__ __align__(16) float sm[];
   const int ldk = odd(d), ldv = odd(dvw), ldp = odd(kBq);
   float* ks = sm;                   // (kBk, ldk)
@@ -162,8 +137,6 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int rg = tid >> 4;  // key rows rg*2, rg*2 + 1
   const int cl = tid & 15;  // query columns cl + 16 j; output columns cl + 16 jj
-  const float qmul = prescale ? scale : 1.f;
-  const float smul = prescale ? 1.f : scale;
 
   float acc_k[2][DPT], acc_v[2][DPT];
 #pragma unroll
@@ -184,7 +157,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int q0 = qt * kBq;
       const int qrows = min(kBq, sq - q0);
       __syncthreads();  // the previous tile's q, do, P^T and dS^T are used up
-      stage(qs, q + (bh * sq + q0) * d, kBq, qrows, d, ldk, qmul);
+      stage(qs, q + (bh * sq + q0) * d, kBq, qrows, d, ldk, scale);
       stage(dos, dout + (bh * sq + q0) * dvw, kBq, qrows, dvw, ldv, 1.f);
       for (int r = tid; r < kBq; r += kThreads) {
         ls[r] = r < qrows ? lse[bh * sq + q0 + r] : -INFINITY;
@@ -232,7 +205,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
               (l == -INFINITY ||
                masked(kpos, q0 + c + q_offset, skv, causal, window))
                   ? 0.f
-                  : expf(s[i][j] * smul - l);
+                  : expf(s[i][j] - l);
           ps[(rg * 2 + i) * ldp + c] = p;
           dss[(rg * 2 + i) * ldp + c] = p * (dp[i][j] - dls[c]);
         }
@@ -270,8 +243,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < DPT; ++jj) {
       const int col = cl + 16 * jj;
-      if (col < d) dk[row * d + col] = from_f<T>(acc_k[i][jj] * smul);
-      if (col < dvw) dv[row * dvw + col] = from_f<T>(acc_v[i][jj]);
+      if (col < d) dk[row * d + col] = acc_k[i][jj];
+      if (col < dvw) dv[row * dvw + col] = acc_v[i][jj];
     }
   }
 }
@@ -282,13 +255,13 @@ size_t dq_smem(int d, int dv) {
          sizeof(float);
 }
 
-template <typename T, int DPT>
+template <int DPT>
 __global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, int h, int hkv, int sq, int skv, int d, int dvw,
-          int causal, int window, int q_offset, float scale, int prescale,
+          float* __restrict__ dq, int h, int hkv, int sq, int skv, int d,
+          int dvw, int causal, int window, int q_offset, float scale,
           int bhs) {
   extern __shared__ __align__(16) float sm[];
   const int ldk = odd(d), ldv = odd(dvw), lds = odd(kBk);
@@ -307,12 +280,10 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = (bh / h) * hkv + (bh % h) / group;
   const int q0 = qt * kBq;
   const int qrows = min(kBq, sq - q0);
-  const float qmul = prescale ? scale : 1.f;
-  const float smul = prescale ? 1.f : scale;
-  const T* kp = k + (size_t)kvh * skv * d;
-  const T* vp = v + (size_t)kvh * skv * dvw;
+  const float* kp = k + (size_t)kvh * skv * d;
+  const float* vp = v + (size_t)kvh * skv * dvw;
 
-  stage(qs, q + ((size_t)bh * sq + q0) * d, kBq, qrows, d, ldk, qmul);
+  stage(qs, q + ((size_t)bh * sq + q0) * d, kBq, qrows, d, ldk, scale);
   stage(dos, dout + ((size_t)bh * sq + q0) * dvw, kBq, qrows, dvw, ldv, 1.f);
   const int tid = threadIdx.x;
   for (int r = tid; r < kBq; r += kThreads) {
@@ -385,7 +356,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
             (l == -INFINITY ||
              masked(k0 + c, q0 + r + q_offset, skv, causal, window))
                 ? 0.f
-                : expf(s[i][j] * smul - l);
+                : expf(s[i][j] - l);
         dss[r * lds + c] = p * (dp[i][j] - dls[r]);
       }
     }
@@ -414,69 +385,68 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < DPT; ++jj) {
       const int col = cl + 16 * jj;
-      if (col < d) dq[row * d + col] = from_f<T>(acc[i][jj] * scale);
+      if (col < d) dq[row * d + col] = acc[i][jj] * scale;
     }
   }
 }
 
-template <typename T, int DPT>
+template <int DPT>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int b, int h, int hkv, int sq, int skv, int d,
            int dvw, int causal, int window, int q_offset, cudaStream_t s) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* dot = static_cast<const float*>(dout);
   const float scale = (float)(1.0 / std::sqrt((double)d));
-  const int prescale = sizeof(T) == 4;
   cudaError_t err;
   const long long rows = (long long)b * h * sq;
   if (rows > 0) {
     const long long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    delta_kernel<T><<<(unsigned)blocks, kThreads, 0, s>>>(
-        static_cast<const T*>(o), dot, delta, rows, dvw);
+    delta_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(o), dot, delta, rows, dvw);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   if (skv > 0) {
     const size_t smem = dkdv_smem(d, dvw);
-    auto kern = dkdv_kernel<T, DPT>;
+    auto kern = dkdv_kernel<DPT>;
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const long long blocks = (long long)b * hkv * ((skv + kBk - 1) / kBk);
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     kern<<<(unsigned)blocks, kThreads, smem, s>>>(
-        qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        h, hkv, sq, skv, d, dvw, causal, window, q_offset, scale, prescale);
+        qt, kt, vt, dot, lse, delta, static_cast<float*>(dk),
+        static_cast<float*>(dv), h, hkv, sq, skv, d, dvw, causal, window,
+        q_offset, scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   if (sq > 0) {
     const size_t smem = dq_smem(d, dvw);
-    auto kern = dq_kernel<T, DPT>;
+    auto kern = dq_kernel<DPT>;
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const long long blocks = (long long)b * h * ((sq + kBq - 1) / kBq);
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     kern<<<(unsigned)blocks, kThreads, smem, s>>>(
-        qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), h, hkv, sq, skv, d,
-        dvw, causal, window, q_offset, scale, prescale, b * h);
+        qt, kt, vt, dot, lse, delta, static_cast<float*>(dq), h, hkv, sq, skv,
+        d, dvw, causal, window, q_offset, scale, b * h);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return 0;
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const float* lse, float* delta, void* dq,
              void* dk, void* dv, int b, int h, int hkv, int sq, int skv, int d,
              int dvw, int causal, int window, int q_offset, cudaStream_t s) {
   const int w = d > dvw ? d : dvw;
-#define FA_BWD(DPT)                                                        \
-  return launch<T, DPT>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, h, hkv, \
-                        sq, skv, d, dvw, causal, window, q_offset, s)
+#define FA_BWD(DPT)                                                     \
+  return launch<DPT>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, h, hkv, \
+                     sq, skv, d, dvw, causal, window, q_offset, s)
   if (w <= 16) FA_BWD(1);
   if (w <= 32) FA_BWD(2);
   if (w <= 64) FA_BWD(4);
@@ -491,9 +461,9 @@ extern "C" int flash_attention_bwd_max_head_dim() { return kMaxDim; }
 
 // q (b, h, sq, d), k (b, hkv, skv, d), v (b, hkv, skv, dv), o and dout
 // (b, h, sq, dv), dq (b, h, sq, d), dk (b, hkv, skv, d), dv_out (b, hkv, skv,
-// dv): contiguous, of one type (dtype 0 float32, 1 bfloat16, 2 float16);
-// lse and delta (b, h, sq) float32 (delta is scratch).  Returns the CUDA
-// error of the launches (0 on success).
+// dv): contiguous float32 (dtype 0); lse and delta (b, h, sq) float32
+// (delta is scratch).  Returns the CUDA error of the launches (0 on
+// success).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -506,17 +476,8 @@ extern "C" int flash_attention_bwd_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch<float>(q, k, v, o, dout, lse, delta, dq, dk, dv_out, b,
-                             h, hkv, sq, skv, d, dv, causal, window, q_offset,
-                             s);
-    case 1:
-      return dispatch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk,
-                                     dv_out, b, h, hkv, sq, skv, d, dv, causal,
-                                     window, q_offset, s);
-    case 2:
-      return dispatch<__half>(q, k, v, o, dout, lse, delta, dq, dk, dv_out, b,
-                              h, hkv, sq, skv, d, dv, causal, window, q_offset,
-                              s);
+      return dispatch(q, k, v, o, dout, lse, delta, dq, dk, dv_out, b, h, hkv,
+                      sq, skv, d, dv, causal, window, q_offset, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

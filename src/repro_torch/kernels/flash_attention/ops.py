@@ -11,15 +11,20 @@ sizes.
 Where an input needs a gradient, the call goes through an autograd
 Function: its forward also returns each row's log-sum-exp (the kernel
 writes it beside the output, which stays bit for bit what it is without
-it) and saves q, k, v, o and lse; its backward is the kernel of
-``flash_attention_bwd.cu`` on the card and ``flash_attention_bwd_ref`` on
-the CPU.  The reference has no backward kernel: it trains through
-``chunked_attention``, which XLA differentiates.
+it) and saves q, k, v, o and lse; its backward is a backward kernel on the
+card and ``flash_attention_bwd_ref`` on the CPU.  The backward's kernels
+go by dtype, as the forward's do inside its launcher: float32 to the
+CUDA-core kernels of ``flash_attention_bwd.cu``, bfloat16 and float16 to
+the tensor-core kernels of ``flash_attention_bwd_tc.cu``
+(``BWD_SOURCES``); ``bwd_launches`` counts the launches of each.  The
+reference has no backward kernel: it trains through ``chunked_attention``,
+which XLA differentiates.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 
 import torch
 
@@ -29,6 +34,14 @@ from repro_torch.kernels.flash_attention.ref import (
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_DV = 256  # the widest value head the kernel takes
+# the backward's kernel source for each dtype: CUDA cores for float32,
+# tensor cores for the 16-bit types
+BWD_SOURCES = {torch.float32: "flash_attention_bwd",
+               torch.bfloat16: "flash_attention_bwd_tc",
+               torch.float16: "flash_attention_bwd_tc"}
+# launches of the backward by source in this process (each also adds one
+# to launch_counts["flash_attention_bwd"])
+bwd_launches: Counter = Counter()
 
 
 @functools.cache
@@ -44,14 +57,15 @@ def _library():
 
 
 @functools.cache
-def _bwd_library():
-    """``flash_attention_bwd.cu``'s C launcher and its largest head dim."""
-    lib = _build.load("flash_attention_bwd")
-    fn = lib.flash_attention_bwd_launch
+def _bwd_library(name: str):
+    """The C launcher of the backward kernels in source ``name`` (one of
+    ``BWD_SOURCES``' values) and their largest head dim."""
+    lib = _build.load(name)
+    fn = getattr(lib, f"{name}_launch")
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn, lib.flash_attention_bwd_max_head_dim()
+    return fn, getattr(lib, f"{name}_max_head_dim")()
 
 
 def _check(q, k, v) -> None:
@@ -105,11 +119,12 @@ def _flash_attention_cuda(q, k, v, causal: bool, window: int, q_offset: int,
 
 def _flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool, window: int,
                               q_offset: int):
-    """Launch ``flash_attention_bwd.cu`` (its three kernels) on the current
-    stream: (dq, dk, dv) in q's dtype."""
+    """Launch the three backward kernels of q's dtype (``BWD_SOURCES``) on
+    the current stream: (dq, dk, dv) in q's dtype."""
     q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     lse = lse.contiguous()
-    fn, max_d = _bwd_library()
+    source = BWD_SOURCES[q.dtype]
+    fn, max_d = _bwd_library(source)
     b, h, sq, d = q.shape
     hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     if max(d, dv) > max_d:
@@ -128,8 +143,9 @@ def _flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool, window: int,
                  DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed "
-                           f"with CUDA error {err}")
+                           f"({source}) with CUDA error {err}")
     launch_counts["flash_attention_bwd"] += 1
+    bwd_launches[source] += 1
     return dq, dk, dvv
 
 

@@ -389,7 +389,10 @@ def build_cell(arch: Arch, shape_name: str, device=None, smoke: bool = False,
     ``device`` (default: the card); the example inputs come from ``SEED``.
     ``tuning`` is the reference's, for LMs: ``config`` (fields of the
     config to replace), ``microbatches``, ``mb_budget``; ``zero1`` is
-    taken and does nothing on one card.
+    taken and does nothing on one card.  For GNNs, ``mode`` =
+    ``"partitioned"`` (the reference's ``partitioned_gnn_cell``) raises
+    ``NotImplementedError``: ``launch/gnn_partitioned.py`` is not ported
+    yet.
     """
     tuning = tuning or {}
     device = resolve_device(device)
@@ -402,6 +405,10 @@ def build_cell(arch: Arch, shape_name: str, device=None, smoke: bool = False,
         raise ValueError(f"{arch.id} {shape_name}: "
                          f"{arch.skip_notes.get(shape_name, 'skipped')}")
     if arch.family == "gnn":
+        if tuning.get("mode") == "partitioned":
+            raise NotImplementedError(
+                "tuning mode 'partitioned' needs launch/gnn_partitioned.py, "
+                "which the port does not have yet (ROADMAP Queue 1 item 8.1)")
         cfg, shape = _gnn_shape_config(arch, shape_name, smoke)
         module: Any = GNN_MODULES[arch.id]
         make = _gnn_cell

@@ -12,8 +12,9 @@ pairs, sort them by expert (stable), give each its slot within its expert,
 drop the pairs past the static capacity, gather the kept tokens into a
 dense (E, C, d) batch, run the expert FFN as batched products, and add the
 gated outputs back in float32.  The reference computes all of it outside
-any Pallas kernel, and so does the port: plain PyTorch indexing and
-``torch.bmm``.  What has to match the reference exactly:
+any Pallas kernel; the port uses plain PyTorch indexing and ``torch.bmm``,
+with the gather and the sum on ``models/gather.py``.  What has to match the
+reference exactly:
 
 * capacity ``max(1, int(capacity_factor * T * top_k / E))`` in Python,
   over all T tokens of a dispatch group (at decode with B = 4, E = 64,
@@ -24,14 +25,19 @@ any Pallas kernel, and so does the port: plain PyTorch indexing and
   pairs aimed at the dummy slot (E-1, C-1) and token index T a zero row;
   max and min are order-free, so the tables are exact on any device;
 * the output summed in float32, the shared experts added in float32, one
-  cast at the end.  The scatter-add of at most top_k + 1 terms a row runs
-  in another order than XLA's (float32 roundings only).
+  cast at the end.  The sum of at most top_k + 1 terms a row runs in
+  another order than XLA's scatter-add (float32 roundings only): the
+  dispatch gather and the combine go through ``models/gather.py`` on one
+  sorted index, so the combine's sum and the gather's gradient are
+  segment_reduce sums in a fixed order, and a step repeats bit for bit on
+  the card.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.gather import gather_nodes, scatter_sum, sorted_index
 from repro_torch.models.layers import dense_init
 
 
@@ -123,16 +129,20 @@ def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,
     wtbl = torch.zeros((g, e * cap), dtype=torch.float32, device=dev) \
         .scatter_reduce(1, cell, torch.where(keep, sw, 0.0), "amax",
                         include_self=True)
+    # one sorted index over the groups' (tl + 1)-row blocks serves the
+    # gather, its gradient and the combine
+    rows = g * (tl + 1)
+    flat = (idx + torch.arange(g, device=dev)[:, None] * (tl + 1)).reshape(-1)
+    index = sorted_index(flat, rows, counts=False)
     xz = torch.cat([x.reshape(g, tl, d), x.new_zeros((g, 1, d))], 1)
-    xe = xz.gather(1, idx[..., None].expand(g, e * cap, d)) \
+    xe = gather_nodes(xz.reshape(rows, d), index) \
         .reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
     h = F.silu(torch.bmm(xe, params["w_gate"])) \
         * torch.bmm(xe, params["w_up"])
     y = torch.bmm(h, params["w_down"])                          # (E, G C, d)
-    yw = y.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d) \
-        .float() * wtbl[..., None]
-    out = torch.zeros((g, tl + 1, d), dtype=torch.float32, device=dev)
-    out.scatter_add_(1, idx[..., None].expand(g, e * cap, d), yw)
+    yw = y.reshape(e, g, cap, d).transpose(0, 1).reshape(g * e * cap, d) \
+        .float() * wtbl.reshape(-1, 1)
+    out = scatter_sum(yw, index, rows).reshape(g, tl + 1, d)
     out = out[:, :tl].reshape(t, d)
 
     if "shared" in params:

@@ -6,6 +6,7 @@ hypothesis properties that mirror ``tests/test_bucket_properties.py``.
 """
 import numpy as np
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 pytest.importorskip("hypothesis")

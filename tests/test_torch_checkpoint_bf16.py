@@ -9,6 +9,7 @@ reference hazard, ROADMAP Queue 3.)
 """
 import numpy as np
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

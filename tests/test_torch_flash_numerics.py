@@ -16,6 +16,7 @@ against the plain version on the card (``test_torch_gpu.py``,
 ``chip_smoke.py``).
 """
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -10,6 +10,7 @@ golden file of the reference's standalone runs (``torch_parity.py
 """
 import numpy as np
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -22,6 +22,7 @@ The CUDA kernel itself is held against the plain version on the card
 """
 import numpy as np
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -14,6 +14,7 @@ rtol = 2e-5, atol = 1e-6.
 """
 import numpy as np
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -2,9 +2,10 @@
 (clipping, each schedule), int8 compression, checkpoints written by either
 package and restored by the other, the fault-tolerant loop (a run killed by
 an injected failure and resumed equals an uninterrupted one), the GNN train
-cells, ``launch/train.main --device cpu``, and the count of segment_reduce
-calls a training step makes (which ``chip_smoke.py`` holds the card's
-launch counts to).
+cells (a partitioned-mode cell, not ported yet, is refused),
+``launch/train.main --device cpu``, and the count of segment_reduce calls
+a training step makes (which ``chip_smoke.py`` holds the card's launch
+counts to).
 
 Inputs are made with numpy from a seed; the reference is called through
 ``jax.jit``.  Tolerances (float32):
@@ -26,6 +27,7 @@ import functools
 
 import numpy as np
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 
@@ -298,3 +300,17 @@ def test_segment_sums_per_step(monkeypatch):
         calls.clear()
         cell.step_fn(*cell.args)
         assert len(calls) == chip_smoke.gnn_segment_sums(arch_id, arch.smoke)
+
+
+def test_build_cell_refuses_partitioned_mode():
+    """tuning={"mode": "partitioned"} raises, naming the missing module,
+    where the reference would build its partitioned GNN cell; without the
+    key the replicated cell is built as before."""
+    arch = get_arch("meshgraphnet")
+    with pytest.raises(NotImplementedError,
+                       match=r"gnn_partitioned\.py.*item 8\.1"):
+        steps.build_cell(arch, "full_graph_sm", "cpu", smoke=True,
+                         tuning={"mode": "partitioned"})
+    cell = steps.build_cell(arch, "full_graph_sm", "cpu", smoke=True,
+                            tuning={"mode": "replicated"})
+    assert cell.meta["kind"] == "train"

@@ -6,6 +6,7 @@ card: its tests are in ``test_torch_gpu.py``.
 """
 import numpy as np
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -10,6 +10,7 @@ path runs only on a card (``test_torch_gpu.py``).
 """
 import numpy as np
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -7,6 +7,7 @@ where its int32 admission key ``dest*2^21 + (2^20 - gain)`` wraps.
 """
 import numpy as np
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -10,6 +10,7 @@ file's item count low (ROADMAP Queue 3: test_fleet and pytest-xdist).
 """
 import numpy as np
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

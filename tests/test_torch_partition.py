@@ -9,6 +9,7 @@ committed golden summaries against a live JAX run, so that file (read by
 rmat cases live in sibling files so the suite's workers share the cost.
 """
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -8,6 +8,7 @@ the order of the float32 sums changes).
 """
 import numpy as np
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

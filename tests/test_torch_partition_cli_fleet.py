@@ -8,6 +8,7 @@ import io
 import json
 
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -10,6 +10,7 @@ equal the reference and the committed golden summaries.
 """
 import numpy as np
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -10,6 +10,7 @@ sorted case must also equal the dense case of the same graph and k.  The
 rmat cases live in a sibling file so the suite's workers share the cost.
 """
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

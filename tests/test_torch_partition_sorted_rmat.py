@@ -10,6 +10,7 @@ sorted case must also equal the dense case of the same graph and k.  The
 grid and cube cases live in a sibling file.
 """
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -18,6 +18,7 @@ scan) with tiles of a few items, and is held against the plain version
 """
 import numpy as np
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -13,6 +13,7 @@ card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
 import numpy as np
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

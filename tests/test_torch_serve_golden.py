@@ -2,6 +2,7 @@
 reference (its standalone runs of the burst and its server's dispatch log).
 The dense case is checked live in ``tests/test_torch_serve.py``."""
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 pytest.importorskip("torch")
 

@@ -4,6 +4,7 @@ each graph equal to the reference's array for array.
 """
 import numpy as np
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -18,6 +18,7 @@ Inputs are made with numpy from a seed.  Tolerances (float32): rtol = atol
 """
 import numpy as np
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

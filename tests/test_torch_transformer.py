@@ -21,6 +21,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 
