@@ -200,6 +200,20 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       on the card, with segment_reduce launched ``lm_segment_sums`` times a
       step (the dispatch's sums); ``launch/train.main --arch gemma3-1b``
       and ``--arch fm`` on the card.
+  (x) partition-aware MeshGraphNet training (``launch/gnn_partitioned.py``)
+      at full width on (r)'s mesh and config: partition() on the card (k=8,
+      lam=0.05, ell: jet_gain runs).  (x1) world size 1 on NCCL, the cell
+      from ``steps.build_cell(..., tuning={"mode": "partitioned"})`` on the
+      layout of one rank: loss within 1e-4 relative and step-1 gradients
+      within ``GNN_GRAD_RL2`` of the dense path's, two runs of step 1 bit
+      for bit, segment_reduce ``partitioned_segment_sums`` times a step,
+      no scatter-add in the profiled step; step time, peak memory.  (x2) 8
+      ranks as 8 processes on the one card over gloo (CUDA tensors), the
+      layout sized from the partition (no dropped edge or halo slot): the
+      loss and grad_norm within 1e-4 relative of (x1)'s, whether step 1
+      repeats bit for bit (recorded), the collective bytes a layer (the
+      exchange's D x h_cap x F x 4, the real halo rows, the naive 2 N F);
+      the spawn and the joins time out at 240 s.
   The script ends by checking that no jax or repro (JAX package) module was
   imported.  ``--phases`` runs a subset, for debugging; such a run prints no
   result line.
@@ -241,6 +255,15 @@ def gnn_segment_sums(arch_id: str, cfg) -> int:
     if arch_id == "nequip":  # 3 scatters x 2 + s_j, V_j, T_j backward
         return 9 * cfg.n_layers - 2 + 2
     raise ValueError(arch_id)
+
+
+def partitioned_segment_sums(cfg) -> int:
+    """segment_reduce calls in one rank's partitioned MeshGraphNet train
+    step (``launch/gnn_partitioned.py``): in each block the local sum and
+    its checkpoint recompute, and the backward of the three gathers that
+    need a gradient (senders from the exchanged rows, receivers, the
+    exported boundary rows); the position gathers need none."""
+    return 5 * cfg.n_layers
 
 
 def lm_flash_launches(cfg) -> tuple[int, int]:
@@ -3365,8 +3388,202 @@ def phase_smoke_training(tp, dev):
                   "card: finished at step 4")
 
 
+PARTITIONED_RTOL = 1e-4  # (x): partitioned loss and grad_norm against dense
+PARTITIONED_RANKS = 8
+PARTITIONED_GROUPS = GNN_GROUPS + (("nccl", ("nccl",)),)
+
+
+def phase_partitioned(tp, dev):
+    """(x) partition-aware MeshGraphNet training (launch/gnn_partitioned.py)
+    at full width on (r)'s mesh: world size 1 on NCCL against the dense
+    path, then 8 ranks as 8 processes on the card over gloo."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.core.graph import build_csr_host
+    from repro_torch.core.partition import PartitionConfig
+    from repro_torch.data import synthetic
+    from repro_torch.dist import partition_aware as pa
+    from repro_torch.launch import gnn_partitioned as gp
+    from repro_torch.launch import steps
+    from repro_torch.models.gnn import meshgraphnet
+    from repro_torch.train import loop
+
+    arch = get_arch("meshgraphnet")
+    cfg = dataclasses.replace(arch.config, d_in=4)
+    data = synthetic.mesh_batch(512, 512, seed=0)
+    graph = data["graph"]
+    n, e = graph.node_feat.shape[0], graph.senders.shape[0]
+    edges = torch.stack([graph.senders, graph.receivers], 1).numpy()
+    host = (graph.node_feat.numpy(), graph.pos.numpy(),
+            data["target"].numpy())
+    g = build_csr_host(n, edges)
+
+    # the Jet partition on the card (jet_gain), counted from zero
+    k = PARTITIONED_RANKS
+    res, launches, _ = _run(g, PartitionConfig(k=k, lam=0.05, backend="ell"))
+    parts = res.parts.cpu().numpy()[:n]
+    if not res.balanced or launches.get("jet_gain", 0) == 0:
+        raise AssertionError(f"(x) partition: balanced {res.balanced}, "
+                             f"launches {launches}")
+    print(f"(x) partition() k={k} lam=0.05 ell on the card: cut {res.cut}, "
+          f"imbalance {res.imbalance:.6f}, jet_gain {launches['jet_gain']} "
+          "launches")
+
+    # (x1) world size 1 on NCCL: the layout of one rank (input order)
+    t0 = time.perf_counter()
+    batch1, stats1 = gp.build_partitioned_batch(
+        n, *host, edges, np.zeros(n, np.int64), 1, steps._pad512(n),
+        steps._pad512(e), 8)
+    layout_s = time.perf_counter() - t0
+    shape = {"kind": "train", "n_nodes": n, "n_edges": e, "d_feat": 4,
+             "n_graphs": 1}
+    arch_x = dataclasses.replace(arch, config=cfg, shapes={"mesh": shape})
+    dense = {"graph": graph._replace(
+        **{f: getattr(graph, f).to(dev) for f in (
+            "node_feat", "senders", "receivers", "pos", "graph_id")},
+        plan=None), "target": data["target"].to(dev)}
+    gp.init_rank(0, 1, gp.free_port(), dev)
+    try:
+        cell = steps.build_cell(arch_x, "mesh", dev, tuning={
+            "mode": "partitioned", "halo_frac": 0.0})
+        params, opt0 = cell.args[:2]
+        block = gp.with_local_plan(gp.rank_block(batch1, 0, 1, dev), 1)
+        ex = gp.Exchange()
+        loss_p, grads_p = gp.value_and_grad(cfg, params, block, ex)
+        (loss_d, _), grads_d = loop.value_and_grad(
+            lambda p, b: meshgraphnet.loss_fn(cfg, p, b), params, dense)
+        grad_l2 = _rel_l2(grads_p, grads_d)
+        del grads_p, grads_d, dense
+        if not (_close(float(loss_p), float(loss_d), PARTITIONED_RTOL)
+                and grad_l2 <= GNN_GRAD_RL2):
+            raise AssertionError(f"(x1) loss {float(loss_p)} vs dense "
+                                 f"{float(loss_d)}, gradients' relative L2 "
+                                 f"{grad_l2:.3g}")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        first = cell.step_fn(params, opt0, block)
+        torch.cuda.synchronize()
+        per_step = kernels.launch_counts["segment_reduce"]
+        again = cell.step_fn(params, opt0, block)
+        want = partitioned_segment_sums(cfg)
+        if per_step != want:
+            raise AssertionError(f"(x1) segment_reduce launches per step "
+                                 f"{per_step} != {want}")
+        if not (_bitwise(first[:2], again[:2])
+                and _equal(first[2]["loss"], again[2]["loss"])):
+            raise AssertionError("(x1) two runs of step 1 differ")
+        x1_loss = float(first[2]["loss"])
+        x1_gn = float(first[2]["grad_norm"])
+        del again
+        print(f"(x1) world size 1, backend {ex.backend}: layout built in "
+              f"{layout_s:.2f} s (n_l {steps._pad512(n)}, e_cap "
+              f"{steps._pad512(e)}, h_cap "
+              f"{cell.meta['h_cap']}, dropped {stats1}); loss "
+              f"{float(loss_p):.9g}, dense {float(loss_d):.9g} (gate "
+              f"{PARTITIONED_RTOL}); gradients' relative L2 to dense "
+              f"{grad_l2:.3g} (gate {GNN_GRAD_RL2}); segment_reduce "
+              f"{per_step} launches a step (= 5 x {cfg.n_layers}); two runs "
+              f"of step 1 equal bit for bit; grad_norm {x1_gn:.9g}")
+        step_s = []
+        p, o = first[:2]
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            p, o, _ = cell.step_fn(p, o, block)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+        peak = torch.cuda.max_memory_allocated()
+        best = min(step_s)
+        print(f"(x1) step time {best:.4f} s (steps 2-4: "
+              f"{', '.join(f'{t:.4f}' for t in step_s)}); peak memory "
+              f"{peak} B; (r)'s dense step on the same mesh is printed "
+              "above")
+        keys: list = []
+        groups = phase_profile("(x1)", lambda: cell.step_fn(p, o, block),
+                               best, "train step", PARTITIONED_GROUPS,
+                               keys=keys)
+        bad = sorted({k_ for k_ in keys
+                      if any(w in k_.lower() for w in SCATTER_NAMES)})
+        if bad:
+            raise AssertionError(f"(x1) the step ran {bad[:5]}")
+        print(f"(x1) no index_add / scatter_add / index_put operation or "
+              f"kernel in the step's {len(keys)} profiled names")
+        del first, p, o, block, cell, params, opt0
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (x2) 8 ranks, 8 processes on the one card, gloo on CUDA tensors
+    sz = gp.layout_sizes(n, edges, parts, k)
+    batch8, stats8 = gp.build_partitioned_batch(
+        n, *host, edges, parts, k, sz["n_l"], k * sz["e_cap"], sz["h_cap"])
+    if stats8 != {"dropped_edges": 0, "dropped_halo": 0}:
+        raise AssertionError(f"(x2) the layout dropped {stats8}")
+    cb = pa.comm_bytes_per_layer(pa.plan_from_partition(g, parts, k),
+                                 cfg.d_hidden)
+    gathered = k * sz["h_cap"] * cfg.d_hidden * 4
+    print(f"(x2) layout of {k} ranks: n_l {sz['n_l']}, e_cap {sz['e_cap']}, "
+          f"h_cap {sz['h_cap']}; halo rows a rank {sz['halo_rows']} "
+          f"({sum(sz['halo_rows'])} in all); dropped {stats8}")
+    print(f"(x2) collective bytes a layer at d {cfg.d_hidden}: the exchange "
+          f"gathers {k} x {sz['h_cap']} x {cfg.d_hidden} x 4 = {gathered} B "
+          f"on every rank ({k * gathered} B over the {k} ranks); the real "
+          f"halo rows are {cb['partition_halo']} B "
+          f"(pa.comm_bytes_per_layer), the naive 2*N*F "
+          f"{cb['naive_allgather']} B ({cb['reduction']:.1f}x)")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "layout.npz")
+        np.savez(path, **batch8)
+        del batch8
+        t0 = time.perf_counter()
+        out = gp.spawn_ranks(gp.train_job, k, ({
+            "layout": path, "cfg": cfg, "halo_frac": sz["halo_frac"],
+            "steps": 1, "repeat": True},), device="cuda", backend="gloo",
+            timeout_s=240)
+        wall = time.perf_counter() - t0
+    losses = {r["loss"][0] for r in out}
+    norms = {r["grad_norm"][0] for r in out}
+    loss8, gn8 = out[0]["loss"][0], out[0]["grad_norm"][0]
+    counts = [r["segment_reduce"][0] for r in out]
+    if len(losses) != 1 or len(norms) != 1 or \
+            not _close(loss8, x1_loss, PARTITIONED_RTOL) or \
+            not _close(gn8, x1_gn, PARTITIONED_RTOL) or \
+            any(c != partitioned_segment_sums(cfg) for c in counts):
+        raise AssertionError(f"(x2) losses {losses} vs (x1) {x1_loss}, "
+                             f"grad_norm {norms} vs {x1_gn}, segment_reduce "
+                             f"{counts}")
+    meta = out[0]["meta"]
+    print(f"(x2) {k} ranks over {meta['backend']} on CUDA tensors (gloo "
+          "copies them through host memory itself): "
+          f"loss {loss8:.9g} vs (x1) {x1_loss:.9g}, grad_norm {gn8:.9g} vs "
+          f"{x1_gn:.9g} (gate {PARTITIONED_RTOL}); segment_reduce "
+          f"{counts[0]} launches a step on every rank; step 1 repeats bit "
+          f"for bit on {sum(r['repeats'] for r in out)} of {k} ranks "
+          f"(recorded, not gated); step times "
+          f"{[round(r['step_s'][0], 4) for r in out]} s (gloo on one card: "
+          f"a check of correctness, not of exchange speed); peak memory a "
+          f"rank {max(r.get('peak_bytes', 0) for r in out)} B; {wall:.1f} s with "
+          "the processes' start")
+    return {"launches": per_step, "jet_gain": launches["jet_gain"],
+            "step_s": best, "peak_bytes": peak,
+            "device_ms_per_step": groups.get("segment_reduce"),
+            "ranks": k, "loss": x1_loss, "loss_8_ranks": loss8,
+            "h_cap": sz["h_cap"], "gathered_bytes_per_layer": gathered,
+            "halo_bytes_per_layer": cb["partition_halo"],
+            "naive_bytes_per_layer": cb["naive_allgather"]}
+
+
 PHASES = ("a", "b", "b2", "b3", "c", "d", "n", "p", "e", "g", "h", "m", "o",
-          "i", "j", "k", "l", "q", "r", "s", "t", "u", "v", "w")
+          "i", "j", "k", "l", "q", "r", "s", "t", "u", "v", "w",
+          "x")
 
 
 def main(argv=None) -> int:
@@ -3482,6 +3699,10 @@ def main(argv=None) -> int:
     entries.append(flash_bwd)
     if "w" in run:
         timed("w", phase_smoke_training, tp, dev)
+    if "x" in run:
+        part = timed("x", phase_partitioned, tp, dev)
+        segment["partitioned"] = part
+        jet_gain["partitioned"] = {"launches": part["jet_gain"]}
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if leaked:

@@ -9,8 +9,8 @@ records which vertices must be exported as halo features each layer.
 ``naive_plan`` is the strawman — contiguous vertex blocks in input order —
 whose per-layer cost is a full-node all-gather plus all-reduce.
 
-Collective bytes per message-passing layer (the reference's
-``launch/gnn_partitioned.py``, still to be ported):
+Collective bytes per message-passing layer (``launch/gnn_partitioned.py``
+trains on such a layout):
     naive       : N*F (gather) + N*F (reduce)  = 2*N*F
     partitioned : halo_fraction * N * F        (one boundary gather)
 so the partitioner's cut quality IS the communication bill.

@@ -3,9 +3,12 @@ LM, FM and GNN train cells and the LM and FM serve cells.
 
 A cell is a plain callable with example inputs made from a seed, for one
 (arch, shape) pair: ``cell.step_fn(*cell.args)`` runs the step.  The
-reference's cells carry shardings over a device mesh; the port runs on one
-card, so it has none: its ``zero1`` tuning (optimizer state sharded over
-the data axis) is a no-op here.
+reference's cells carry shardings over a device mesh; the port's run on one
+card, so they have none: its ``zero1`` tuning (optimizer state sharded over
+the data axis) is a no-op here.  The exception is MeshGraphNet's
+partitioned mode (``tuning={"mode": "partitioned"}``): one process per rank
+of a ``torch.distributed`` group, each building its rank's cell
+(``launch/gnn_partitioned.py``).
 """
 from __future__ import annotations
 
@@ -380,7 +383,7 @@ def _fm_cell(arch: Arch, shape_name: str, cfg: fm_lib.FMConfig, shape,
 
 
 def build_cell(arch: Arch, shape_name: str, device=None, smoke: bool = False,
-               params=None, tuning: dict | None = None) -> Cell:
+               params=None, tuning: dict | None = None, mesh=None) -> Cell:
     """The cell of ``arch`` at ``shape_name``: a train cell (args: params,
     optimizer state, batch) or an LM or FM serve cell.
 
@@ -390,9 +393,11 @@ def build_cell(arch: Arch, shape_name: str, device=None, smoke: bool = False,
     ``tuning`` is the reference's, for LMs: ``config`` (fields of the
     config to replace), ``microbatches``, ``mb_budget``; ``zero1`` is
     taken and does nothing on one card.  For GNNs, ``mode`` =
-    ``"partitioned"`` (the reference's ``partitioned_gnn_cell``) raises
-    ``NotImplementedError``: ``launch/gnn_partitioned.py`` is not ported
-    yet.
+    ``"partitioned"`` builds this rank's cell of
+    ``launch/gnn_partitioned.partitioned_gnn_cell`` (MeshGraphNet only;
+    ``halo_frac`` sizes its halo) over ``mesh`` (a DeviceMesh, or None for
+    the default group); it needs an initialised process group and raises
+    ``RuntimeError`` without one.
     """
     tuning = tuning or {}
     device = resolve_device(device)
@@ -406,9 +411,11 @@ def build_cell(arch: Arch, shape_name: str, device=None, smoke: bool = False,
                          f"{arch.skip_notes.get(shape_name, 'skipped')}")
     if arch.family == "gnn":
         if tuning.get("mode") == "partitioned":
-            raise NotImplementedError(
-                "tuning mode 'partitioned' needs launch/gnn_partitioned.py, "
-                "which the port does not have yet (ROADMAP Queue 1 item 8.1)")
+            from repro_torch.launch.gnn_partitioned import \
+                partitioned_gnn_cell
+
+            return partitioned_gnn_cell(arch, shape_name, mesh, device,
+                                        smoke, tuning, params)
         cfg, shape = _gnn_shape_config(arch, shape_name, smoke)
         module: Any = GNN_MODULES[arch.id]
         make = _gnn_cell

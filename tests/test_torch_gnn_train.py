@@ -2,10 +2,10 @@
 (clipping, each schedule), int8 compression, checkpoints written by either
 package and restored by the other, the fault-tolerant loop (a run killed by
 an injected failure and resumed equals an uninterrupted one), the GNN train
-cells (a partitioned-mode cell, not ported yet, is refused),
-``launch/train.main --device cpu``, and the count of segment_reduce calls
-a training step makes (which ``chip_smoke.py`` holds the card's launch
-counts to).
+cells (a partitioned-mode cell is built under a process group and refused
+without one), ``launch/train.main --device cpu``, and the count of
+segment_reduce calls a training step makes (which ``chip_smoke.py`` holds
+the card's launch counts to).
 
 Inputs are made with numpy from a seed; the reference is called through
 ``jax.jit``.  Tolerances (float32):
@@ -303,14 +303,35 @@ def test_segment_sums_per_step(monkeypatch):
 
 
 def test_build_cell_refuses_partitioned_mode():
-    """tuning={"mode": "partitioned"} raises, naming the missing module,
-    where the reference would build its partitioned GNN cell; without the
-    key the replicated cell is built as before."""
+    """tuning={"mode": "partitioned"} refuses to run without a process
+    group (RuntimeError, not one rank quietly) and for another GNN than
+    MeshGraphNet; under a gloo group of one rank it builds the reference's
+    partitioned cell (``launch/gnn_partitioned.py``), whose step runs;
+    without the key the replicated cell is built as before."""
+    from repro_torch.launch import gnn_partitioned as gp
+
     arch = get_arch("meshgraphnet")
-    with pytest.raises(NotImplementedError,
-                       match=r"gnn_partitioned\.py.*item 8\.1"):
+    part = {"mode": "partitioned", "halo_frac": 0.5}
+    with pytest.raises(RuntimeError, match="process group"):
         steps.build_cell(arch, "full_graph_sm", "cpu", smoke=True,
-                         tuning={"mode": "partitioned"})
+                         tuning=part)
+    gp.init_rank(0, 1, gp.free_port(), torch.device("cpu"),
+                 log=lambda *a, **k: None)
+    try:
+        with pytest.raises(ValueError, match="meshgraphnet only"):
+            steps.build_cell(get_arch("schnet"), "molecule", "cpu",
+                             smoke=True, tuning=part)
+        cell = steps.build_cell(arch, "full_graph_sm", "cpu", smoke=True,
+                                tuning=part)
+        meta = cell.meta
+        assert (meta["mode"], meta["halo_frac"], meta["world"]) == \
+            ("partitioned", 0.5, 1)
+        # full_graph_sm's 128 nodes and 512 edges pad to 512 each
+        assert (meta["n_l"], meta["e_cap"], meta["h_cap"]) == (512, 512, 256)
+        _, _, metrics = cell.step_fn(*cell.args)
+        assert np.isfinite(float(metrics["loss"]))
+    finally:
+        torch.distributed.destroy_process_group()
     cell = steps.build_cell(arch, "full_graph_sm", "cpu", smoke=True,
                             tuning={"mode": "replicated"})
     assert cell.meta["kind"] == "train"

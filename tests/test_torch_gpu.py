@@ -4,7 +4,8 @@ against the CPU run, the committed golden results and, for the sorted
 backend, the dense backend, the serving models (FM, Gemma-3 1B and
 DeepSeek-V2-Lite's MLA + MoE) against their CPU runs, and GNN training:
 scatter_sum and gather_nodes with their backward passes on the
-segment_reduce kernel, and each GNN's train step against the CPU's; LM
+segment_reduce kernel, each GNN's train step against the CPU's, and the
+partitioned MeshGraphNet step at world size 1 against the dense one; LM
 and FM training: the backward kernels of flash_attention and
 fm_interaction against their plain versions, and each LM's and FM's smoke
 train step against the CPU's.
@@ -366,10 +367,15 @@ def test_wrappers_take_strided_views(cuda):
                 assert tp.flash_error_ratio(g_, w) <= 1
 
 
-@pytest.mark.parametrize("backend", ["dense", "sorted", "ell"])
-def test_fleet_on_card_matches_cpu_and_golden(cuda, backend):
-    """partition_fleet on the card: each member equals the CPU fleet's and
-    the reference's standalone run (golden), at k = 8, T = 2."""
+def test_fleet_on_card_matches_cpu_and_golden(cuda):
+    """partition_fleet on the card, dense, sorted and ell: each member
+    equals the CPU fleet's and the reference's standalone run (golden), at
+    k = 8, T = 2."""
+    for backend in ("dense", "sorted", "ell"):
+        _fleet_on_card(backend)
+
+
+def _fleet_on_card(backend):
     from repro_torch.core import graph as gr
     from repro_torch.core.partition import PartitionConfig, partition_fleet
     from repro_torch.data import graphs as gen
@@ -444,12 +450,16 @@ def test_gnn_scatter_and_gather_on_card(cuda):
     assert float(card[0][7].abs().sum()) == 0.0
 
 
-@pytest.mark.parametrize("arch_id", tp.GNN_ARCHS)
-def test_gnn_training_on_card_matches_cpu(cuda, arch_id):
+def test_gnn_training_on_card_matches_cpu(cuda):
     """One train step of each GNN's smoke config on the card: loss and
     gradients within 2e-4 of the CPU's, segment_reduce launched as
     ``chip_smoke.gnn_segment_sums`` counts, and the step bit for bit equal
     across two runs."""
+    for arch_id in tp.GNN_ARCHS:
+        _gnn_training_on_card(cuda, arch_id)
+
+
+def _gnn_training_on_card(cuda, arch_id):
     import chip_smoke
     from repro_torch import tree
     from repro_torch.configs import get_arch
@@ -482,6 +492,59 @@ def test_gnn_training_on_card_matches_cpu(cuda, arch_id):
     zero = torch.zeros((), device=cuda)
     one, two = (step(p_card, adamw.init_state(p_card), zero, b_card)
                 for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree.leaves(one[:2]), tree.leaves(two[:2])))
+
+
+def test_partitioned_gnn_one_rank_on_card(cuda):
+    """The partitioned MeshGraphNet step at world size 1 on the card (NCCL,
+    the smoke config on a 16x16 mesh): loss within 1e-4 relative and
+    gradients within ``chip_smoke.GNN_GRAD_RL2`` of the dense path's,
+    segment_reduce launched ``chip_smoke.partitioned_segment_sums`` times a
+    step, and the step bit for bit equal across two runs."""
+    import chip_smoke
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.launch import gnn_partitioned as gp
+    from repro_torch.models.gnn import meshgraphnet
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    cfg = get_arch("meshgraphnet").smoke
+    data = synthetic.mesh_batch(16, 16, seed=0)
+    graph = data["graph"]
+    n = graph.node_feat.shape[0]
+    edges = torch.stack([graph.senders, graph.receivers], 1).numpy()
+    batch, stats = gp.build_partitioned_batch(
+        n, graph.node_feat.numpy(), graph.pos.numpy(),
+        data["target"].numpy(), edges, np.zeros(n, np.int64), 1, 512, 2048,
+        8)
+    assert stats == {"dropped_edges": 0, "dropped_halo": 0}
+    params = meshgraphnet.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0))
+    dense = {"graph": graph._replace(
+        **{f: getattr(graph, f).to(cuda) for f in (
+            "node_feat", "senders", "receivers", "pos", "graph_id")},
+        plan=None), "target": data["target"].to(cuda)}
+    (l_d, _), g_d = loop.value_and_grad(
+        lambda p, b: meshgraphnet.loss_fn(cfg, p, b), params, dense)
+    gp.init_rank(0, 1, gp.free_port(), cuda)
+    try:
+        ex = gp.Exchange()
+        block = gp.with_local_plan(gp.rank_block(batch, 0, 1, cuda), 1)
+        kernels.reset_launch_counts()
+        loss, grads = gp.value_and_grad(cfg, params, block, ex)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["segment_reduce"] == \
+            chip_smoke.partitioned_segment_sums(cfg)
+        step = gp.make_step(cfg, ex)
+        one, two = (step(params, adamw.init_state(params), block)
+                    for _ in range(2))
+    finally:
+        torch.distributed.destroy_process_group()
+    assert abs(float(loss) - float(l_d)) <= 1e-4 * abs(float(l_d))
+    assert chip_smoke._rel_l2(grads, g_d) <= chip_smoke.GNN_GRAD_RL2
     assert all(torch.equal(a, b) for a, b in
                zip(tree.leaves(one[:2]), tree.leaves(two[:2])))
 
@@ -577,14 +640,19 @@ def test_fm_interaction_backward_matches_plain(cuda, dtype):
                                rtol=1e-2, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch_id", ["gemma3-1b", "deepseek-v2-lite-16b",
-                                     "moonshot-v1-16b-a3b", "fm"])
-def test_lm_and_fm_training_on_card_matches_cpu(cuda, arch_id):
+def test_lm_and_fm_training_on_card_matches_cpu(cuda):
     """One smoke train step's loss and gradients on the card within 2e-4
-    of the CPU's; the launches a step as ``chip_smoke`` counts them (MoE
-    layers add their combine's sums and their gather's gradient on
+    of the CPU's, for gemma3-1b, deepseek-v2-lite-16b, moonshot-v1-16b-a3b
+    and fm; the launches a step as ``chip_smoke`` counts them (MoE layers
+    add their combine's sums and their gather's gradient on
     segment_reduce); the step (gradient and AdamW update) bit for bit
     across two runs, the MoE configs' included."""
+    for arch_id in ("gemma3-1b", "deepseek-v2-lite-16b",
+                    "moonshot-v1-16b-a3b", "fm"):
+        _lm_or_fm_training_on_card(cuda, arch_id)
+
+
+def _lm_or_fm_training_on_card(cuda, arch_id):
     import chip_smoke
     from repro_torch import tree
     from repro_torch.configs import get_arch
