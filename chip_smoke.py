@@ -214,6 +214,20 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       repeats bit for bit (recorded), the collective bytes a layer (the
       exchange's D x h_cap x F x 4, the real halo rows, the naive 2 N F);
       the spawn and the joins time out at 240 s.
+  (y) the cost-counting dry run (``launch/dryrun.py``, ``launch/op_cost.py``)
+      against the card: for Gemma-3 1B train_4k at (v)'s batch of 8,
+      MeshGraphNet at (r)'s mesh size (262,144 nodes, 1,568,770 edges,
+      padded to 512) and FM train_batch, the ``card`` record built on the
+      host under fake tensors, then the cell on the card: one step timed
+      with the peak memory reset, one step under op_cost, whose flops,
+      bytes and transcendentals must equal the record's and whose kernels
+      must launch as often as the record counts their calls (above 0); the
+      peak against the record's prediction within ``PEAK_RATIO``; counted
+      over model flops, TFLOP/s and the one-card bound printed.  Then the
+      host time a segment_reduce and a jet_gain call spends in the custom
+      op's dispatch, against the launch alone.  (The dry run over every
+      cell of the production meshes needs no card: ``python -m
+      repro_torch.launch.dryrun --mesh both``.)
   The script ends by checking that no jax or repro (JAX package) module was
   imported.  ``--phases`` runs a subset, for debugging; such a run prints no
   result line.
@@ -669,8 +683,7 @@ def phase_full_width(dev):
     err = max(int((a - b).abs().max()) for a, b in zip(got, want))
     ms = _time_ms(lambda: ops.jet_gain_from_parts(nbr_parts, wgt, tparts, k), 50)
     plain_ms = _time_ms(lambda: jet_gain_ref(nbr_parts, wgt, tparts, k), 5)
-    nbytes = (nbr_parts.numel() + wgt.numel() + tparts.numel()
-              + 3 * tparts.numel()) * 4
+    nbytes = ops.jet_gain_cost(nbr_parts, wgt, tparts, k)["bytes"]
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     t, nn, d = nbr_parts.shape
     print(f"(e) jet_gain at T={t} N={nn} D={d} k={k}: {ms:.4f} ms, plain "
@@ -721,7 +734,7 @@ def _jet_gain_levels(g, cfg) -> None:
     for key, ins in first.items():
         ms = _time_ms(lambda ins=ins: kernel(*ins), 20)
         total += launches[key] * ms
-        nbytes = (ins[0].numel() + ins[1].numel() + 4 * ins[2].numel()) * 4
+        nbytes = ops.jet_gain_cost(*ins)["bytes"]
         print(f"(e) jet_gain at T, N, D = {key}: {launches[key]} launches, "
               f"{ms:.4f} ms each, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} "
               f"ms")
@@ -882,7 +895,7 @@ def phase_sorted_full_width(tp, dev, g, cfg_ell, res_ell):
         return out.index_add_(0, idx, data)
 
     library_ms = _time_ms(library, 20)
-    nbytes = (ids.numel() + data.numel() + s) * 4
+    nbytes = ops.segment_reduce_cost(data, ids, s)["bytes"]
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     print(f"(g) segment_reduce at the run-weight sum (M={ids.numel()}, F=1, "
           f"S={s}, up to {int(run_id[:, -1].max()) + 1} runs per trial): "
@@ -898,7 +911,7 @@ def phase_sorted_full_width(tp, dev, g, cfg_ell, res_ell):
     ids2 = trial_ids(run_vertex, gd.n_max + 1)
     data2 = torch.where(own, run_conn, 0).reshape(-1, 1)
     ms2, err2 = check_and_time("conn_self sum", data2, ids2, s2)
-    bytes2 = (ids2.numel() + data2.numel() + s2) * 4
+    bytes2 = ops.segment_reduce_cost(data2, ids2, s2)["bytes"]
     print(f"(g) segment_reduce at the conn_self sum (M={ids2.numel()}, "
           f"S={s2}, a ghost run of {int((~valid).sum()) // t} rows per "
           f"trial): {ms2:.4f} ms, bound "
@@ -992,7 +1005,7 @@ def _segment_levels(first: dict, launches: dict) -> None:
         m, f, s = key
         ms = _time_ms(lambda: ops.segment_sum_sorted(data, seg, s), 20)
         total += launches[key] * ms
-        nbytes = (m + m * f + s * f) * 4
+        nbytes = ops.segment_reduce_cost(data, seg, s)["bytes"]
         print(f"(g) segment_reduce at M, F, S = {key}: {launches[key]} "
               f"launches, {ms:.4f} ms each, bound "
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
@@ -1028,7 +1041,7 @@ def _segment_wide(dev) -> None:
     plain_ms = _time_ms(lambda: segment_sum_sorted_ref(data, seg, s), 5)
     library_ms = _time_ms(lambda: torch.zeros(s, f, device=dev).index_add_(
         0, idx, data), 20)
-    nbytes = (m + m * f + s * f) * 4
+    nbytes = ops.segment_reduce_cost(data, seg, s)["bytes"]
     print(f"(g) segment_reduce at F={f} (M={m}, S={s}, float32, runs of about "
           f"8 rows): {ms:.4f} ms, plain {plain_ms:.4f} ms, zeros + "
           f"index_add_ {library_ms:.4f} ms, bound "
@@ -1246,7 +1259,7 @@ def phase_fleet_full_width(tp, dev):
     ms = _time_ms(lambda: ops.jet_gain_from_parts(nbr_parts, wgt, tparts,
                                                   cfg.k), 50)
     plain_ms = _time_ms(lambda: jet_gain_ref(nbr_parts, wgt, tparts, cfg.k), 5)
-    nbytes = (nbr_parts.numel() + wgt.numel() + 4 * tparts.numel()) * 4
+    nbytes = ops.jet_gain_cost(nbr_parts, wgt, tparts, cfg.k)["bytes"]
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     b, t, nn, d = nbr_parts.shape
     print(f"(m) jet_gain at the largest bucket's finest level (B={b}, T={t}, "
@@ -1705,8 +1718,8 @@ def phase_fm_serving(tp, dev):
     ms = _time_ms(lambda: ops.fm_interaction(emb), 50)
     plain_ms = _time_ms(lambda: fm_interaction_ref(emb), 10)
     b, f, d = emb.shape
-    nbytes = emb.numel() * 4 + b * 4
-    flops = 3 * b * f * d + 3 * b * d + b
+    cost = ops.fm_interaction_cost(emb)
+    nbytes, flops = cost["bytes"], cost["flops"]
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
     steps_ms = {name: _time_ms(lambda c=cells[name]: c.step_fn(*c.args), 20)
                 for name in cells}
@@ -1796,12 +1809,6 @@ def phase_flash_vs_plain(tp, dev):
           + " of the tolerance; bitwise equal across launches")
 
 
-def _attention_pairs(sq: int, window: int) -> int:
-    """Visible (query, key) pairs of causal attention with Sq = Skv."""
-    i = np.arange(sq, dtype=np.int64)
-    return int((np.minimum(i + 1, window) if window else i + 1).sum())
-
-
 def _flash_at_shape(tp, dev, window: int, b=4, h=4, hkv=1, s=4096, d=256,
                     dv=256):
     """The kernel, its plain version and SDPA at one causal bfloat16 prefill
@@ -1838,8 +1845,8 @@ def _flash_at_shape(tp, dev, window: int, b=4, h=4, hkv=1, s=4096, d=256,
     lib_err = float((library().float() - want.float()).abs().max())
     library_ms = _time_ms(library, 10)
     # q, k, v in, o out; q k^T and P V: 2 D + 2 Dv flops a visible pair
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
-    flops = (2 * d + 2 * dv) * _attention_pairs(s, window) * b * h
+    cost = ops.flash_attention_cost(q, k, v, True, window)
+    nbytes, flops = cost["bytes"], cost["flops"]
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bytes": nbytes, "flops": flops,
@@ -2486,7 +2493,7 @@ def phase_gnn_training(tp, dev):
     idx = rcv.ids.long()
     library_ms = _time_ms(lambda: torch.zeros(
         n, cfg.d_hidden, device=dev).index_add_(0, idx, data_e), 20)
-    nbytes = (e + e * cfg.d_hidden + n * cfg.d_hidden) * 4
+    nbytes = ops.segment_reduce_cost(data_e, rcv.ids, n)["bytes"]
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     print(f"(r) segment_reduce at M={e}, F={cfg.d_hidden}, S={n}: {ms:.4f} "
           f"ms, plain {plain_ms:.4f} ms, zeros + index_add_ "
@@ -2814,9 +2821,8 @@ def _flash_bwd_at_shape(dev, window: int, b=8, h=4, hkv=1, s=4096, d=256,
     # q, k, v, o, do in and dq, dk, dv out (2 bytes each), lse in (4); the
     # gradient's products: S = q k^T (2 D), dP = do v^T (2 Dv), dV = P^T do
     # (2 Dv), dQ = dS k (2 D), dK = dS^T q (2 D) a visible pair
-    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
-                  + 2 * o.numel()) + 4 * lse.numel()
-    flops = (6 * d + 4 * dv) * _attention_pairs(s, window) * b * h
+    cost = ops.flash_attention_bwd_cost(q, k, v, o, lse, do, True, window)
+    nbytes, flops = cost["bytes"], cost["flops"]
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bytes": nbytes, "flops": flops,
@@ -3120,9 +3126,8 @@ def phase_fm_training(tp, dev):
     err = float((got - want_).abs().max())
     ms = _time_ms(lambda: fm_ops.fm_interaction_bwd(emb, g), 50)
     plain_ms = _time_ms(lambda: fm_interaction_bwd_ref(emb, g), 10)
-    n_el = emb.numel()
-    nbytes = 2 * n_el * 4 + b * 4        # e in, grad out, g in
-    flops = 3 * n_el                     # s - e, times g, and the sum
+    cost = fm_ops.fm_interaction_bwd_cost(emb, g)  # e, g in; grad out
+    nbytes, flops = cost["bytes"], cost["flops"]
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
     print(f"(u) fm_interaction backward at train_batch (B={b}, "
           f"F={cfg.n_fields}, D={cfg.embed_dim}, float32): {ms:.4f} ms, plain "
@@ -3581,9 +3586,203 @@ def phase_partitioned(tp, dev):
             "naive_bytes_per_layer": cb["naive_allgather"]}
 
 
+# ---------------------------------------------------------------------------
+# (y) the dry run and op_cost against real steps
+# ---------------------------------------------------------------------------
+
+# measured peak over the fake run's predicted peak.  The fake run sees
+# every storage the step's ops make, from the step's inputs on; it does not
+# see what runs inside a kernel's custom op (the flash backward's
+# contiguous copies and delta, segment_reduce's scratch), cuBLAS's
+# workspaces, or the caching allocator's rounding of each block to 512
+# bytes, all of which raise the measured peak.  On these three cells they
+# came to under 0.03% of it (ratios 1.0000-1.0002 on an NVIDIA H100 80GB
+# HBM3 at 700 W), so the band is wide enough for far more than that and
+# narrow enough to catch a step that holds a tensor the fake run frees, or
+# frees one it holds (5% of these peaks: 0.26-1.8 GB).
+PEAK_RATIO = (0.95, 1.10)
+
+
+def _unique_bytes(tree_) -> int:
+    """Bytes of the distinct storages of ``tree_``'s tensors."""
+    from repro_torch.launch.op_cost import _tensors
+
+    seen = {}
+    for t in _tensors(tree_):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _step_against_record(tag: str, arch, shape_name: str, dev) -> dict:
+    """One cell's fake ``card`` record, then the cell on the card: a step
+    timed (peak memory reset), a step under op_cost (flops, bytes and
+    transcendentals equal the record's, each kernel launched as often as
+    the record counts its calls)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.op_cost import OpCost
+
+    t0 = time.perf_counter()
+    rec = dryrun.record(arch, shape_name, "card")
+    if rec["status"] != "ok":
+        raise AssertionError(f"{tag} the fake record: {rec.get('error')}\n"
+                             f"{rec.get('traceback')}")
+    fake_s = time.perf_counter() - t0
+    want, meta = rec["cost"], rec["meta"]
+    cell = steps.build_cell(arch, shape_name, dev)
+    step, args = cell.step_fn, cell.args
+    out = step(*args)          # warm-up (caches the rope frequencies)
+    del out
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() - _unique_bytes(args)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    out = step(*args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    before = dict(kernels.launch_counts)
+    mode = OpCost()
+    with mode:
+        out = step(*args)
+        torch.cuda.synchronize()
+    del out
+    got = mode.result()
+    launched = {k: kernels.launch_counts[k] - before.get(k, 0)
+                for k in kernels.launch_counts}
+    diff = {k: (got[k], want[k]) for k in ("flops", "bytes",
+                                            "transcendentals")
+            if got[k] != want[k]}
+    calls = {k: v["calls"] for k, v in want["by_kernel"].items()}
+    if diff or got["by_kernel"] != want["by_kernel"]:
+        raise AssertionError(f"{tag} counted on the card {diff}, kernels "
+                             f"{got['by_kernel']} != the fake record's "
+                             f"{want['by_kernel']}")
+    if not calls or any(launched.get(k, 0) != n for k, n in calls.items()):
+        raise AssertionError(f"{tag} launches {launched} != the record's "
+                             f"calls {calls}")
+    predicted = rec["memory"]["peak_bytes"]
+    ratio = peak / predicted
+    if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
+        raise AssertionError(f"{tag} peak {peak} B / predicted {predicted} B "
+                             f"= {ratio:.4f}, outside {PEAK_RATIO}")
+    bound = rec["bound"]
+    print(f"{tag} {arch.id} {shape_name}: the fake record in {fake_s:.1f} s; "
+          f"on the card flops {got['flops']}, bytes {got['bytes']}, "
+          f"transcendentals {got['transcendentals']}: equal to the record; "
+          f"launches {launched} equal its calls")
+    print(f"{tag} peak {peak} B against the predicted {predicted} B (ratio "
+          f"{ratio:.4f}); counted / model flops "
+          f"{got['flops'] / meta['model_flops']:.4f}; a step {step_s:.4f} s "
+          f"without the counter: {got['flops'] / step_s / 1e12:.2f} TFLOP/s "
+          f"counted, {meta['model_flops'] / step_s / 1e12:.2f} of model "
+          f"flops; one-card bound {bound['s']:.4f} s ({bound['by']}; step / "
+          f"bound {step_s / bound['s']:.2f})")
+    return {"flops": got["flops"], "bytes": got["bytes"],
+            "transcendentals": got["transcendentals"],
+            "model_flops": meta["model_flops"], "launches": launched,
+            "peak_bytes": peak, "predicted_peak_bytes": predicted,
+            "peak_ratio": ratio, "step_s": step_s, "bound_s": bound["s"],
+            "fake_s": fake_s}
+
+
+def _dispatch_overhead(dev, calls: int = 2000, rounds: int = 5) -> dict:
+    """Host microseconds a call of segment_reduce's and jet_gain's wrappers
+    (the checks, the custom op's dispatch, the launch) and of their launch
+    alone (the checks and the ctypes launch, no dispatch), at small shapes
+    where the host's time is the call's: the cost of the custom ops on the
+    host-bound paths, (o)'s thousands of jet_gain and segment_reduce calls
+    and (q)'s decode.  The median of ``rounds`` alternating rounds."""
+    import torch
+
+    from repro_torch.kernels.jet_gain import ops as jg
+    from repro_torch.kernels.segment_reduce import ops as sr
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    data = torch.rand(4096, 1, generator=g).to(dev)
+    ids = torch.sort(torch.randint(0, 512, (4096,), generator=g,
+                                   dtype=torch.int32))[0].to(dev)
+    nbr_parts = torch.randint(0, 17, (4, 1024, 8), generator=g,
+                              dtype=torch.int32).to(dev)
+    wgt = torch.randint(1, 9, (1024, 8), generator=g,
+                        dtype=torch.int32).to(dev)
+    parts = torch.randint(0, 16, (4, 1024), generator=g,
+                          dtype=torch.int32).to(dev)
+
+    def seg_direct():
+        sr._check(data, ids, 512)
+        return sr._segment_sum_cuda(data, ids, 512)
+
+    def jet_direct():
+        jg._check(nbr_parts, wgt, parts)
+        return jg._jet_gain_cuda(nbr_parts, wgt, parts, 16)
+
+    pairs = {"segment_reduce": (lambda: sr.segment_sum_sorted(data, ids, 512),
+                                seg_direct),
+             "jet_gain": (lambda: jg.jet_gain_from_parts(nbr_parts, wgt,
+                                                          parts, 16),
+                          jet_direct)}
+    def as_tuple(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    for name, (op, direct) in pairs.items():  # equal answers; a warm-up
+        if not all(torch.equal(x, y) for x, y in zip(as_tuple(op()),
+                                                      as_tuple(direct()))):
+            raise AssertionError(f"(y) {name}: the custom op and the "
+                                 "launch alone disagree")
+
+    def per_call(fn) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / calls * 1e6
+
+    out = {}
+    for name, (op, direct) in pairs.items():
+        times = [(per_call(op), per_call(direct)) for _ in range(rounds)]
+        op_us = float(np.median([t[0] for t in times]))
+        direct_us = float(np.median([t[1] for t in times]))
+        out[name] = {"op_us": op_us, "direct_us": direct_us,
+                     "dispatch_us": op_us - direct_us}
+        print(f"(y) {name} at a small shape, host time a call: through the "
+              f"custom op {op_us:.2f} us, the launch alone "
+              f"{direct_us:.2f} us: dispatch {op_us - direct_us:.2f} us a "
+              f"call (median of {rounds} rounds of {calls})")
+    return out
+
+
+def phase_dryrun(tp, dev):
+    """(y) the cost-counting dry run against the card: three training
+    cells' fake records against real steps, and the custom ops' host
+    cost."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    gemma = get_arch("gemma3-1b")
+    gemma = dataclasses.replace(gemma, shapes={"train_4k": dict(
+        gemma.shapes["train_4k"], batch=GEMMA_TRAIN_BATCH)})
+    mgn = get_arch("meshgraphnet")
+    mgn = dataclasses.replace(mgn, shapes={"mesh_512": {
+        "kind": "train", "n_nodes": 512 * 512, "n_edges": 1_568_770,
+        "d_feat": mgn.config.d_in, "n_graphs": 1}})
+    out = {}
+    for arch, name in ((gemma, "train_4k"), (mgn, "mesh_512"),
+                       (get_arch("fm"), "train_batch")):
+        out[arch.id] = _step_against_record("(y)", arch, name, dev)
+    out["dispatch_us"] = _dispatch_overhead(dev)
+    return out
+
+
 PHASES = ("a", "b", "b2", "b3", "c", "d", "n", "p", "e", "g", "h", "m", "o",
           "i", "j", "k", "l", "q", "r", "s", "t", "u", "v", "w",
-          "x")
+          "x", "y")
 
 
 def main(argv=None) -> int:
@@ -3703,6 +3902,8 @@ def main(argv=None) -> int:
         part = timed("x", phase_partitioned, tp, dev)
         segment["partitioned"] = part
         jet_gain["partitioned"] = {"launches": part["jet_gain"]}
+    if "y" in run:
+        timed("y", phase_dryrun, tp, dev)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if leaked:

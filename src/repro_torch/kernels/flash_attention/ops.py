@@ -19,6 +19,11 @@ the tensor-core kernels of ``flash_attention_bwd_tc.cu``
 (``BWD_SOURCES``); ``bwd_launches`` counts the launches of each.  The
 reference has no backward kernel: it trains through ``chunked_attention``,
 which XLA differentiates.
+
+The forward and the backward are custom ops (``repro_torch::flash_attention``
+and ``repro_torch::flash_attention_bwd``, see ``kernels/__init__.py``);
+their cost formulas count the work of the visible (query, key) pairs only
+(:func:`attention_pairs`).
 """
 from __future__ import annotations
 
@@ -26,9 +31,10 @@ import ctypes
 import functools
 from collections import Counter
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import _build, launch_counts
+from repro_torch.kernels import _build, cost, launch_counts, nbytes, op_costs
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_bwd_ref, flash_attention_ref)
 
@@ -149,16 +155,107 @@ def _flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool, window: int,
     return dq, dk, dvv
 
 
+def attention_pairs(sq: int, skv: int, causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> int:
+    """Visible (query, key) pairs of one (batch, head): query i at position
+    i + ``q_offset`` sees key j < ``skv`` where j <= i + q_offset (causal)
+    and i + q_offset - j < ``window`` (``window`` > 0)."""
+    pos = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(pos, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros(sq)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_attention_cost(q, k, v, causal: bool = True, window: int = 0,
+                         q_offset: int = 0, with_lse: bool = False) -> dict:
+    """One forward call: q k^T and P V, 2 D + 2 Dv flops and one exp a
+    visible pair; q, k, v read and o (and the lse) written once."""
+    b, h, sq, d = q.shape
+    pairs = attention_pairs(sq, k.shape[2], causal, window, q_offset) * b * h
+    dv = v.shape[3]
+    out = b * h * sq * (dv * q.element_size() + (4 if with_lse else 0))
+    return cost((2 * d + 2 * dv) * pairs, nbytes(q, k, v) + out, pairs)
+
+
+def flash_attention_bwd_cost(q, k, v, o, lse, do, causal: bool = True,
+                             window: int = 0, q_offset: int = 0) -> dict:
+    """One backward call: S = q k^T (2 D), dP = do v^T (2 Dv), dV = P^T do
+    (2 Dv), dQ = dS k (2 D), dK = dS^T q (2 D) flops and one exp a visible
+    pair; q, k, v, o, lse, do read and dq, dk, dv written once."""
+    b, h, sq, d = q.shape
+    pairs = attention_pairs(sq, k.shape[2], causal, window, q_offset) * b * h
+    dv = v.shape[3]
+    return cost((6 * d + 4 * dv) * pairs,
+                2 * nbytes(q, k, v) + nbytes(o, lse, do), pairs)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, window: int, q_offset: int,
+                with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse): the plain version on the CPU; lse is empty (0,) unless
+    ``with_lse``."""
+    if with_lse:
+        o, lse = flash_attention_ref(q, k, v, causal, window, q_offset,
+                                     return_lse=True)
+        return o.contiguous(), lse.contiguous()
+    return (flash_attention_ref(q, k, v, causal, window, q_offset)
+            .contiguous(), _no_lse(q))
+
+
+def _no_lse(q):
+    return torch.empty((0,), dtype=torch.float32, device=q.device)
+
+
+@_forward_op.register_kernel("cuda")
+def _(q, k, v, causal, window, q_offset, with_lse):
+    if with_lse:
+        return _flash_attention_cuda(q, k, v, causal, window, q_offset, True)
+    return (_flash_attention_cuda(q, k, v, causal, window, q_offset),
+            _no_lse(q))
+
+
+@_forward_op.register_fake
+def _(q, k, v, causal, window, q_offset, with_lse):
+    b, h, sq, _ = q.shape
+    return (q.new_empty((b, h, sq, v.shape[3])),
+            q.new_empty((b, h, sq) if with_lse else (0,),
+                        dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cpu")
+def _backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                 causal: bool, window: int, q_offset: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return tuple(x.contiguous() for x in flash_attention_bwd_ref(
+        q, k, v, o, lse, do, causal, window, q_offset))
+
+
+@_backward_op.register_kernel("cuda")
+def _(q, k, v, o, lse, do, causal, window, q_offset):
+    return _flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, window,
+                                     q_offset)
+
+
+@_backward_op.register_fake
+def _(q, k, v, o, lse, do, causal, window, q_offset):
+    return tuple(torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                 for x in (q, k, v))
+
+
+op_costs["repro_torch::flash_attention"] = flash_attention_cost
+op_costs["repro_torch::flash_attention_bwd"] = flash_attention_bwd_cost
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
                         window: int = 0, q_offset: int = 0):
     """(dq, dk, dv) of :func:`flash_attention` from its inputs, its output
     o, the rows' log-sum-exp and o's cotangent ``do``: the backward kernel
     on CUDA tensors, its plain version on CPU tensors."""
-    if q.device.type == "cuda":
-        return _flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, window,
-                                         q_offset)
-    return flash_attention_bwd_ref(q, k, v, o, lse, do, causal, window,
-                                   q_offset)
+    return _backward_op(q, k, v, o, lse, do, causal, window, q_offset)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -167,13 +264,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
-        if q.device.type == "cuda":
-            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-            o, lse = _flash_attention_cuda(q, k, v, causal, window, q_offset,
-                                           with_lse=True)
-        else:
-            o, lse = flash_attention_ref(q, k, v, causal, window, q_offset,
-                                         return_lse=True)
+        o, lse = _forward_op(q, k, v, causal, window, q_offset, True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask = (causal, window, q_offset)
         return o
@@ -204,6 +295,4 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, q_offset)
-    if q.device.type == "cuda":
-        return _flash_attention_cuda(q, k, v, causal, window, q_offset)
-    return flash_attention_ref(q, k, v, causal, window, q_offset)
+    return _forward_op(q, k, v, causal, window, q_offset, False)[0]

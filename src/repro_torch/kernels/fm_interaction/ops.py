@@ -10,7 +10,9 @@ message.
 
 Where ``emb`` needs a gradient, the call goes through an autograd Function
 whose backward is the backward kernel in the same ``.cu`` (its plain
-version ``fm_interaction_bwd_ref`` on the CPU).
+version ``fm_interaction_bwd_ref`` on the CPU).  Both directions are
+custom ops (``repro_torch::fm_interaction``, ``repro_torch::
+fm_interaction_bwd``, see ``kernels/__init__.py``) with a cost formula each.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, launch_counts
+from repro_torch.kernels import _build, cost, launch_counts, nbytes, op_costs
 from repro_torch.kernels.fm_interaction.ref import (
     fm_interaction_bwd_ref, fm_interaction_ref)
 
@@ -82,22 +84,68 @@ def _fm_interaction_bwd_cuda(emb, g):
     return grad
 
 
+def fm_interaction_cost(emb) -> dict:
+    """One forward call: Σ_f e, Σ_f e² and their difference, 3 flops an
+    element, then 3 a (row, d) and one a row; emb read and the (B,)
+    float32 scores written once."""
+    b, f, d = emb.shape
+    return cost(3 * b * f * d + 3 * b * d + b, nbytes(emb) + 4 * b)
+
+
+def fm_interaction_bwd_cost(emb, g) -> dict:
+    """One backward call: s - e, times g, and the sum, 3 flops an element;
+    emb and g (float32) read, the gradient written once in emb's dtype."""
+    return cost(3 * emb.numel(), 2 * nbytes(emb) + 4 * emb.shape[0])
+
+
+@torch.library.custom_op("repro_torch::fm_interaction", mutates_args=(),
+                         device_types="cpu")
+def _forward_op(emb: torch.Tensor) -> torch.Tensor:
+    return fm_interaction_ref(emb).contiguous()
+
+
+@_forward_op.register_kernel("cuda")
+def _(emb):
+    return _fm_interaction_cuda(emb)
+
+
+@_forward_op.register_fake
+def _(emb):
+    return emb.new_empty((emb.shape[0],), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::fm_interaction_bwd", mutates_args=(),
+                         device_types="cpu")
+def _backward_op(emb: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    return fm_interaction_bwd_ref(emb, g).contiguous()
+
+
+@_backward_op.register_kernel("cuda")
+def _(emb, g):
+    return _fm_interaction_bwd_cuda(emb, g)
+
+
+@_backward_op.register_fake
+def _(emb, g):
+    return torch.empty(emb.shape, dtype=emb.dtype, device=emb.device)
+
+
+op_costs["repro_torch::fm_interaction"] = fm_interaction_cost
+op_costs["repro_torch::fm_interaction_bwd"] = fm_interaction_bwd_cost
+
+
 def fm_interaction_bwd(emb, g):
     """The gradient of :func:`fm_interaction` at ``emb`` for the scores'
     cotangent ``g`` (B,): the backward kernel on a CUDA tensor, its plain
     version on a CPU tensor."""
-    if emb.device.type == "cuda":
-        return _fm_interaction_bwd_cuda(emb, g)
-    return fm_interaction_bwd_ref(emb, g)
+    return _backward_op(emb, g)
 
 
 class _FmInteraction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, emb):
         ctx.save_for_backward(emb)
-        if emb.device.type == "cuda":
-            return _fm_interaction_cuda(emb)
-        return fm_interaction_ref(emb)
+        return _forward_op(emb)
 
     @staticmethod
     def backward(ctx, g):
@@ -122,6 +170,4 @@ def fm_interaction(emb: torch.Tensor) -> torch.Tensor:
                          f"{emb.device}")
     if torch.is_grad_enabled() and emb.requires_grad:
         return _FmInteraction.apply(emb)
-    if emb.device.type == "cuda":
-        return _fm_interaction_cuda(emb)
-    return fm_interaction_ref(emb)
+    return _forward_op(emb)

@@ -11,6 +11,9 @@ all trials; per-trial arrays carry a T axis (``parts`` (T, N), ``nbr_parts``
 (T, N, D)), or none.  On a fleet bucket every array has a leading lane axis
 B: the adjacency is (B, N, D), one per lane and never copied T times, and
 per-trial arrays are (B, T, N[, D]).
+
+The query is a custom op (``repro_torch::jet_gain``, see
+``kernels/__init__.py``) with a cost formula.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import functools
 import torch
 
 from repro_torch.core.graph import trial_axis
-from repro_torch.kernels import _build, launch_counts
+from repro_torch.kernels import _build, cost, launch_counts, nbytes, op_costs
 from repro_torch.kernels.jet_gain.ref import jet_gain_ref
 
 
@@ -90,28 +93,28 @@ def ell_to_matrix(nbr_parts, wgt, k: int):
                             torch.where(valid, wgt, 0))
 
 
-def _check(nbr_parts, wgt, parts):
-    """The panel's (rows per lane, N, D): ``wgt`` is (N, D) or (B, N, D),
-    ``nbr_parts`` has wgt's shape or one more axis, T, before N."""
-    shapes = f"nbr_parts {tuple(nbr_parts.shape)}, wgt {tuple(wgt.shape)}, " \
-        f"parts {tuple(parts.shape)}"
+def _check(nbr_parts, wgt, parts) -> None:
+    """The panel's shapes: ``wgt`` is (N, D) or (B, N, D), ``nbr_parts``
+    has wgt's shape or one more axis, T, before N."""
+    def shapes():
+        return (f"nbr_parts {tuple(nbr_parts.shape)}, wgt "
+                f"{tuple(wgt.shape)}, parts {tuple(parts.shape)}")
+
     if wgt.dim() not in (2, 3) or \
             nbr_parts.dim() not in (wgt.dim(), wgt.dim() + 1):
         raise ValueError(f"nbr_parts must be ([B,] [T,] N, D) and wgt "
-                         f"([B,] N, D): {shapes}")
-    lanes = wgt.shape[:-2]
-    if tuple(nbr_parts.shape[:len(lanes)]) != tuple(lanes) or \
-            tuple(nbr_parts.shape[-2:]) != tuple(wgt.shape[-2:]) or \
-            tuple(parts.shape) != tuple(nbr_parts.shape[:-1]):
-        raise ValueError(f"shape mismatch: {shapes}")
+                         f"([B,] N, D): {shapes()}")
+    lanes = wgt.dim() - 2
+    if nbr_parts.shape[:lanes] != wgt.shape[:lanes] or \
+            nbr_parts.shape[-2:] != wgt.shape[-2:] or \
+            parts.shape != nbr_parts.shape[:-1]:
+        raise ValueError(f"shape mismatch: {shapes()}")
     for name, x in (("nbr_parts", nbr_parts), ("wgt", wgt), ("parts", parts)):
         if x.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {x.dtype}")
         if x.device != nbr_parts.device:
             raise ValueError(f"{name} is on {x.device}, nbr_parts on "
                              f"{nbr_parts.device}")
-    n, d = wgt.shape[-2:]
-    return (parts[0] if lanes else parts).numel(), n, d
 
 
 @functools.cache
@@ -126,12 +129,13 @@ def _launcher():
 
 def _jet_gain_cuda(nbr_parts, wgt, parts, k: int):
     """Launch ``jet_gain.cu`` on the current stream (strided views are
-    copied to contiguous first)."""
-    per_lane, n, d = _check(nbr_parts, wgt, parts)
+    copied to contiguous first); the wrapper has checked the shapes."""
+    n, d = wgt.shape[-2:]
+    per_lane = (parts.shape[1:] if wgt.dim() == 3 else parts.shape).numel()
     nbr_parts, wgt, parts = (x.contiguous() for x in (nbr_parts, wgt, parts))
     fn = _launcher()
-    out = torch.empty((3, *parts.shape), dtype=torch.int32,
-                      device=parts.device)
+    out = [torch.empty(parts.shape, dtype=torch.int32, device=parts.device)
+           for _ in range(3)]
     with torch.cuda.device(parts.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(nbr_parts.data_ptr(), wgt.data_ptr(), parts.data_ptr(),
@@ -143,18 +147,46 @@ def _jet_gain_cuda(nbr_parts, wgt, parts, k: int):
     return out[0], out[1], out[2]
 
 
+def jet_gain_cost(nbr_parts, wgt, parts, k: int) -> dict:
+    """One call: an integer add a slot (counted as one operation); the
+    slots' parts and weights and the rows' parts read, and the three (rows,)
+    answers written once, all int32."""
+    return cost(nbr_parts.numel(), nbytes(nbr_parts, wgt) + 4 * nbytes(parts))
+
+
+@torch.library.custom_op("repro_torch::jet_gain", mutates_args=(),
+                         device_types="cpu")
+def _op(nbr_parts: torch.Tensor, wgt: torch.Tensor, parts: torch.Tensor,
+        k: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return tuple(x.contiguous() for x in jet_gain_ref(nbr_parts, wgt, parts,
+                                                      k))
+
+
+@_op.register_kernel("cuda")
+def _(nbr_parts, wgt, parts, k):
+    return _jet_gain_cuda(nbr_parts, wgt, parts, k)
+
+
+@_op.register_fake
+def _(nbr_parts, wgt, parts, k):
+    return tuple(torch.empty(parts.shape, dtype=torch.int32,
+                             device=parts.device) for _ in range(3))
+
+
+op_costs["repro_torch::jet_gain"] = jet_gain_cost
+
+
 def jet_gain_from_parts(nbr_parts, wgt, parts, k: int):
     """Fused conn_self / best_part / best_conn from maintained neighbor parts
     — the entry point of the stateful ELL backend.
 
     A CPU tensor goes to the plain version, a CUDA tensor to the kernel.
     """
-    if nbr_parts.device.type == "cuda":
-        return _jet_gain_cuda(nbr_parts, wgt, parts, k)
-    if nbr_parts.device.type == "cpu":
-        _check(nbr_parts, wgt, parts)
-        return jet_gain_ref(nbr_parts, wgt, parts, k)
-    raise ValueError(f"jet_gain runs on cpu or cuda, not {nbr_parts.device}")
+    if nbr_parts.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"jet_gain runs on cpu or cuda, not "
+                         f"{nbr_parts.device}")
+    _check(nbr_parts, wgt, parts)
+    return _op(nbr_parts, wgt, parts, k)
 
 
 def jet_gain(nbr, wgt, parts, k: int):

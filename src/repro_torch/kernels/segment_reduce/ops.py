@@ -5,7 +5,9 @@ Counterpart of ``repro.kernels.segment_reduce.ops``.
 ``ref.py`` and a CUDA tensor to the kernel in ``segment_reduce.cu``; there
 is no third path.  Strided views are taken (the card path copies them to
 contiguous first).  bfloat16 and float16 data are summed in float32 and
-rounded once to their dtype at the output, on both paths.
+rounded once to their dtype at the output, on both paths.  The sum is a
+custom op (``repro_torch::segment_reduce``, see ``kernels/__init__.py``)
+with a cost formula.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, launch_counts
+from repro_torch.kernels import _build, cost, launch_counts, nbytes, op_costs
 from repro_torch.kernels.segment_reduce.ref import segment_sum_sorted_ref
 
 DTYPES = (torch.int32, torch.float32, torch.bfloat16, torch.float16)
@@ -81,6 +83,34 @@ def _segment_sum_cuda(data, seg_ids, num_segments: int):
     return out.to(dtype)
 
 
+def segment_reduce_cost(data, seg_ids, num_segments: int) -> dict:
+    """One call: an add a data element; the ids and the data read and the
+    (S, F) sums written once in the data's dtype."""
+    m, f = data.shape
+    return cost(m * f, nbytes(seg_ids, data)
+                + num_segments * f * data.element_size())
+
+
+@torch.library.custom_op("repro_torch::segment_reduce", mutates_args=(),
+                         device_types="cpu")
+def _op(data: torch.Tensor, seg_ids: torch.Tensor,
+        num_segments: int) -> torch.Tensor:
+    return segment_sum_sorted_ref(data, seg_ids, num_segments).contiguous()
+
+
+@_op.register_kernel("cuda")
+def _(data, seg_ids, num_segments):
+    return _segment_sum_cuda(data, seg_ids, num_segments)
+
+
+@_op.register_fake
+def _(data, seg_ids, num_segments):
+    return data.new_empty((num_segments, data.shape[1]))
+
+
+op_costs["repro_torch::segment_reduce"] = segment_reduce_cost
+
+
 def segment_sum_sorted(data, seg_ids, num_segments: int):
     """Sorted-segment sum: data (M, F), seg_ids (M,) int32 non-decreasing.
 
@@ -90,8 +120,7 @@ def segment_sum_sorted(data, seg_ids, num_segments: int):
     decrease give a wrong sum, unchecked.
     """
     _check(data, seg_ids, num_segments)
-    if data.device.type == "cuda":
-        return _segment_sum_cuda(data, seg_ids, num_segments)
-    if data.device.type == "cpu":
-        return segment_sum_sorted_ref(data, seg_ids, num_segments)
-    raise ValueError(f"segment_reduce runs on cpu or cuda, not {data.device}")
+    if data.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"segment_reduce runs on cpu or cuda, not "
+                         f"{data.device}")
+    return _op(data, seg_ids, num_segments)

@@ -401,7 +401,8 @@ def local_sums(cfg, params, b: dict, ex: Exchange):
     e = mlp_apply(params["enc_e"], efeat, act=F.relu) * v_e
     for i in range(cfg.n_layers):
         h, e = checkpoint(_block, layer(params["blocks"], i), h, e, plan,
-                          v_e, ex, use_reentrant=False)
+                          v_e, ex, use_reentrant=False,
+                          preserve_rng_state=False)
     pred = mlp_apply(params["dec"], h, act=F.relu)
     se = torch.sum(((pred - b["target"]) ** 2) * v_n)
     return se, torch.sum(v_n) * cfg.d_out

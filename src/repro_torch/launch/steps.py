@@ -4,11 +4,19 @@ LM, FM and GNN train cells and the LM and FM serve cells.
 A cell is a plain callable with example inputs made from a seed, for one
 (arch, shape) pair: ``cell.step_fn(*cell.args)`` runs the step.  The
 reference's cells carry shardings over a device mesh; the port's run on one
-card, so they have none: its ``zero1`` tuning (optimizer state sharded over
-the data axis) is a no-op here.  The exception is MeshGraphNet's
-partitioned mode (``tuning={"mode": "partitioned"}``): one process per rank
-of a ``torch.distributed`` group, each building its rank's cell
+card, so they carry none, and :func:`arg_specs` gives the reference's
+spec of every argument leaf on a mesh (``launch/sharding.py``), for the dry
+run's per-device bytes.  Given a ``mesh``, an LM train cell takes the
+reference's microbatch count for it (the batch per data-parallel device);
+without one, the one-device rule.  Its ``zero1`` tuning (optimizer state
+sharded over the data axis) changes only the specs.  MeshGraphNet's
+partitioned mode (``tuning={"mode": "partitioned"}``) is one process per
+rank of a ``torch.distributed`` group, each building its rank's cell
 (``launch/gnn_partitioned.py``).
+
+Under ``torch._subclasses.FakeTensorMode`` (on the CPU device) a cell is
+built from fake tensors: the example inputs are zeros of the same shapes
+and types, with no numpy draw, and a cell of any size costs no memory.
 """
 from __future__ import annotations
 
@@ -22,6 +30,8 @@ from repro_torch import tree
 from repro_torch.configs.base import Arch
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding as sh
+from repro_torch.launch.mesh import dp_axes, dp_size
 from repro_torch.models import transformer as tf
 from repro_torch.models.gnn import graphsage, meshgraphnet, nequip, schnet
 from repro_torch.models.gnn.common import GraphBatch, edge_plan
@@ -31,6 +41,14 @@ from repro_torch.train.loop import value_and_grad
 
 
 SEED = 0  # of the cells' parameters and example inputs
+
+
+def _fake() -> bool:
+    """Whether a FakeTensorMode is active (the cell is built on fake
+    tensors)."""
+    from torch._guards import detect_fake_mode
+
+    return detect_fake_mode() is not None
 
 
 class Cell(NamedTuple):
@@ -136,6 +154,8 @@ def materialize(args, seed: int = 0):
     from the same key), every integer leaf zero."""
 
     def one(x):
+        if _fake():
+            return torch.zeros_like(x)
         if x.dtype.is_floating_point:
             a = np.asarray(np.random.default_rng(seed).standard_normal(
                 tuple(x.shape), dtype=np.float32) * np.float32(0.02))
@@ -150,21 +170,47 @@ def materialize(args, seed: int = 0):
 # ---------------------------------------------------------------------------
 
 def lm_microbatches(cfg: tf.LMConfig, batch: int, seq: int,
-                    tuning: dict) -> int:
-    """The reference's gradient-accumulation rule on one device: halve the
-    batch while its activation working set, ~8 float32 buffers of
-    (tokens, width) (MoE widens the width to the active experts'), is over
-    ``mb_budget`` (8e9 bytes) and the halves stay whole; ``microbatches``
-    in ``tuning`` overrides it."""
+                    tuning: dict, dp_size: int = 1) -> int:
+    """The reference's gradient-accumulation rule for ``dp_size``
+    data-parallel devices (1: one card): halve each device's batch while
+    its activation working set, ~8 float32 buffers of (tokens, width) (MoE
+    widens the width to the active experts'), is over ``mb_budget`` (8e9
+    bytes) and the halves stay whole; ``microbatches`` in ``tuning``
+    overrides it."""
+    per_dev = max(batch // dp_size, 1)
     eff_d = cfg.d_model
     if cfg.moe:
         eff_d = max(eff_d, (cfg.top_k + cfg.n_shared) * cfg.d_expert)
-    live = batch * seq * eff_d * 4 * 8
+    live = per_dev * seq * eff_d * 4 * 8
     mb = 1
     budget = tuning.get("mb_budget", 8e9)
-    while live / mb > budget and mb < batch and batch % (mb * 2) == 0:
+    while live / mb > budget and mb < per_dev and \
+            batch % (dp_size * mb * 2) == 0:
         mb *= 2
     return tuning.get("microbatches", mb)
+
+
+def _dp_size(mesh) -> int:
+    """Devices along the mesh's data-parallel axes (1 without a mesh)."""
+    return 1 if mesh is None else dp_size(sh.mesh_sizes(mesh))
+
+
+def _lm_batch(vocab: int, batch: int, seq: int, device) -> dict:
+    """The cell's token batch: the synthetic stream's first, or zeros on
+    fake tensors."""
+    if _fake():
+        z = torch.zeros((batch, seq), dtype=torch.int32, device=device)
+        return {"tokens": z, "labels": z.clone()}
+    return next(synthetic.lm_batches(vocab, batch, seq, SEED, device))
+
+
+def _recsys_batch(cfg, batch: int, device) -> dict:
+    if _fake():
+        return {"ids": torch.zeros((batch, cfg.n_fields), dtype=torch.int32,
+                                   device=device),
+                "labels": torch.zeros(batch, device=device)}
+    return next(synthetic.recsys_batches(
+        cfg.n_fields, cfg.rows_per_field, batch, SEED, device))
 
 
 def make_train_step(loss, microbatches: int = 1,
@@ -202,7 +248,7 @@ def make_train_step(loss, microbatches: int = 1,
 
 
 def _lm_cell(arch: Arch, shape_name: str, cfg: tf.LMConfig, shape, params,
-             device, tuning: dict) -> Cell:
+             device, tuning: dict, mesh=None) -> Cell:
     kind, batch, seq = shape["kind"], shape["batch"], shape["seq"]
     meta = {
         "kind": kind,
@@ -212,14 +258,13 @@ def _lm_cell(arch: Arch, shape_name: str, cfg: tf.LMConfig, shape, params,
         "tokens": batch * (seq if kind != "decode" else 1),
     }
     if kind == "train":
-        mb = lm_microbatches(cfg, batch, seq, tuning)
+        mb = lm_microbatches(cfg, batch, seq, tuning, _dp_size(mesh))
         meta["microbatches"] = mb
-        b = next(synthetic.lm_batches(cfg.vocab, batch, seq, SEED, device))
+        b = _lm_batch(cfg.vocab, batch, seq, device)
         return Cell(make_train_step(lambda p, bb: tf.loss_fn(cfg, p, bb), mb),
                     (params, adamw.init_state(params), b), meta)
-    tokens = next(synthetic.lm_batches(
-        cfg.vocab, batch, seq if kind == "prefill" else 1, SEED,
-        device))["tokens"]
+    tokens = _lm_batch(cfg.vocab, batch, seq if kind == "prefill" else 1,
+                       device)["tokens"]
     if kind == "prefill":
         def prefill_step(params, tokens):
             return tf.prefill(cfg, params, tokens)
@@ -280,9 +325,11 @@ def _gnn_batch_spec(arch_id: str, shape) -> dict:
 
 def with_edge_plan(b: dict, n_graphs: int) -> dict:
     """The batch dict with its edge plan (``"plan"``), built once: every
-    step over this batch reuses it."""
+    step over this batch reuses it.  On fake tensors the graph ids are
+    taken as sorted (a cell's are zeros)."""
     return {**b, "plan": edge_plan(b["senders"], b["receivers"],
-                                   b["graph_id"], n_graphs)}
+                                   b["graph_id"], n_graphs,
+                                   check=not _fake())}
 
 
 def gnn_loss(arch_id: str, cfg, n_graphs: int):
@@ -306,7 +353,7 @@ def gnn_loss(arch_id: str, cfg, n_graphs: int):
 
 
 def _gnn_cell(arch: Arch, shape_name: str, cfg, shape, params,
-              device, tuning: dict) -> Cell:
+              device, tuning: dict, mesh=None) -> Cell:
     n_graphs = shape["n_graphs"]
     spec = _gnn_batch_spec(arch.id, shape)
     batch = materialize({k: torch.empty(s, dtype=dt, device=device)
@@ -345,7 +392,7 @@ def materialize_cell(cell: Cell, seed: int = 0):
 # ---------------------------------------------------------------------------
 
 def _fm_cell(arch: Arch, shape_name: str, cfg: fm_lib.FMConfig, shape,
-             params, device, tuning: dict) -> Cell:
+             params, device, tuning: dict, mesh=None) -> Cell:
     kind = shape["kind"]
     meta = {
         "kind": kind,
@@ -355,14 +402,11 @@ def _fm_cell(arch: Arch, shape_name: str, cfg: fm_lib.FMConfig, shape,
         "tokens": shape.get("batch", 1),
     }
     if kind == "train":
-        batch = next(synthetic.recsys_batches(
-            cfg.n_fields, cfg.rows_per_field, shape["batch"], SEED, device))
+        batch = _recsys_batch(cfg, shape["batch"], device)
         return Cell(make_train_step(lambda p, b: fm_lib.loss_fn(cfg, p, b)),
                     (params, adamw.init_state(params), batch), meta)
     if kind == "serve":
-        ids = next(synthetic.recsys_batches(
-            cfg.n_fields, cfg.rows_per_field, shape["batch"], SEED,
-            device))["ids"]
+        ids = _recsys_batch(cfg, shape["batch"], device)["ids"]
 
         def serve_step(params, ids):
             return fm_lib.serve(cfg, params, ids)
@@ -370,13 +414,17 @@ def _fm_cell(arch: Arch, shape_name: str, cfg: fm_lib.FMConfig, shape,
         return Cell(serve_step, (params, ids), meta)
 
     # retrieval: one query against n_candidates items of the last field
-    rng = np.random.default_rng(SEED)
-    user_ids = rng.integers(0, cfg.rows_per_field, (1, cfg.n_fields - 1))
-    cand_ids = rng.integers(0, cfg.rows_per_field, shape["n_candidates"])
-
     def retrieval_step(params, user_ids, cand_ids):
         return fm_lib.retrieval_scores(cfg, params, user_ids, cand_ids)
 
+    if _fake():
+        return Cell(retrieval_step, (params, torch.zeros(
+            (1, cfg.n_fields - 1), dtype=torch.int32, device=device),
+            torch.zeros(shape["n_candidates"], dtype=torch.int32,
+                        device=device)), meta)
+    rng = np.random.default_rng(SEED)
+    user_ids = rng.integers(0, cfg.rows_per_field, (1, cfg.n_fields - 1))
+    cand_ids = rng.integers(0, cfg.rows_per_field, shape["n_candidates"])
     return Cell(retrieval_step, (
         params, torch.from_numpy(user_ids.astype(np.int32)).to(device),
         torch.from_numpy(cand_ids.astype(np.int32)).to(device)), meta)
@@ -392,7 +440,9 @@ def build_cell(arch: Arch, shape_name: str, device=None, smoke: bool = False,
     ``device`` (default: the card); the example inputs come from ``SEED``.
     ``tuning`` is the reference's, for LMs: ``config`` (fields of the
     config to replace), ``microbatches``, ``mb_budget``; ``zero1`` is
-    taken and does nothing on one card.  For GNNs, ``mode`` =
+    taken and changes only :func:`arg_specs`.  ``mesh`` (a DeviceMesh,
+    ``launch/mesh.py``) sets an LM train cell's microbatches by the
+    reference's rule for its data-parallel devices.  For GNNs, ``mode`` =
     ``"partitioned"`` builds this rank's cell of
     ``launch/gnn_partitioned.partitioned_gnn_cell`` (MeshGraphNet only;
     ``halo_frac`` sizes its halo) over ``mesh`` (a DeviceMesh, or None for
@@ -428,4 +478,92 @@ def build_cell(arch: Arch, shape_name: str, device=None, smoke: bool = False,
     if params is None:
         gen = torch.Generator(device=device).manual_seed(SEED)
         params = module.init_params(cfg, gen)
-    return make(arch, shape_name, cfg, shape, params, device, tuning)
+    return make(arch, shape_name, cfg, shape, params, device, tuning, mesh)
+
+
+# ---------------------------------------------------------------------------
+# argument specs on a mesh (the reference's in_shardings)
+# ---------------------------------------------------------------------------
+
+# batch leaves that the reference's cells do not have: a GNN batch's edge
+# plan (``models/gnn/common.py:edge_plan``: the senders' and receivers'
+# stable argsorts, their sorted ids and per-node counts, and the graph ids'
+# index), which the port builds once a batch so that every sum runs on
+# segment_reduce in a fixed order
+PORT_ONLY = ("plan",)
+
+
+def _plan_specs(mesh, plan):
+    """Specs of an edge plan: its (E,) and (N,) arrays rows-sharded over
+    every axis, as the senders and node arrays are; the per-graph counts
+    replicated."""
+    rows = (tuple(mesh.mesh_dim_names),)
+
+    def index_specs(ix, counts_rows: bool):
+        if ix is None:
+            return None
+        return ix._replace(index=rows, order=rows, ids=rows,
+                           counts=None if ix.counts is None else
+                           (rows if counts_rows else (None,)))
+
+    return plan._replace(senders=index_specs(plan.senders, True),
+                         receivers=index_specs(plan.receivers, True),
+                         graph=index_specs(plan.graph, False))
+
+
+def arg_specs(arch: Arch, cell: Cell, mesh, tuning: dict | None = None):
+    """The spec tree (``launch/sharding.py``) of each of ``cell.args`` on
+    ``mesh``, as the reference's cell gives its ``in_shardings``; a GNN
+    batch's edge plan (``PORT_ONLY``) gets :func:`_plan_specs`."""
+    tuning = tuning or {}
+    kind, params = cell.meta["kind"], cell.args[0]
+    dp = dp_axes(mesh)
+    if arch.family == "gnn":
+        p_sh = sh.gnn_param_sharding(mesh, params)
+        batch = cell.args[2]
+        b_sh = sh.gnn_batch_sharding(
+            mesh, {k: v for k, v in batch.items() if k not in PORT_ONLY})
+        if "plan" in batch:
+            b_sh["plan"] = _plan_specs(mesh, batch["plan"])
+        return p_sh, sh.opt_sharding_like(p_sh, mesh), b_sh
+    if arch.family == "recsys":
+        p_sh = sh.fm_param_sharding(mesh, params)
+        if kind == "train":
+            return (p_sh, sh.opt_sharding_like(p_sh, mesh),
+                    sh.fm_batch_sharding(mesh))
+        if kind == "serve":
+            return p_sh, (dp, None)
+        return p_sh, (None, None), (dp,)
+    zero1 = tuning.get("zero1", False)
+    p_sh = (sh.lm_param_sharding_zero1 if zero1
+            else sh.lm_param_sharding)(mesh, params)
+    if kind == "train":
+        grad_sh = sh.lm_param_sharding(mesh, params)
+        return (p_sh, sh.opt_sharding_like(grad_sh if zero1 else p_sh, mesh),
+                sh.lm_batch_sharding(mesh))
+    if kind == "prefill":
+        return p_sh, (dp, None)
+    cache, tokens = cell.args[1], cell.args[2]
+    batch, n_dp = tokens.shape[0], _dp_size(mesh)
+    big_b = batch % n_dp == 0 and batch >= n_dp
+    return (p_sh, sh.lm_cache_sharding(mesh, cache, batch),
+            (dp,) if big_b else (None,))
+
+
+def argument_leaves(cell: Cell, specs=None, mesh=None) -> list[dict]:
+    """Every argument leaf of ``cell`` with its path (``<arg>/<path>``),
+    spec, per-device shape and bytes, and whether the reference has it;
+    without ``specs`` and ``mesh`` (one card) every leaf is whole.
+    The LM cache's length, a Python int here, is counted as the
+    reference's int32 scalar."""
+    out = []
+    for path, leaf, spec in sh.flatten_specs(cell.args, specs):
+        shape, dtype = ((tuple(leaf.shape), leaf.dtype)
+                        if isinstance(leaf, torch.Tensor)
+                        else ((), torch.int32))
+        local = shape if mesh is None else sh.shard_shape(mesh, spec, shape)
+        keys = path.split("/")
+        out.append({"path": path, "spec": spec, "shard_shape": local,
+                    "device_bytes": int(np.prod(local)) * dtype.itemsize,
+                    "port_only": len(keys) > 1 and keys[1] in PORT_ONLY})
+    return out

@@ -33,14 +33,16 @@ class SortedIndex(NamedTuple):
 
 
 def sorted_index(index: torch.Tensor, n: int, presorted: bool = False,
-                 counts: bool = True) -> SortedIndex:
+                 counts: bool = True, check: bool = True) -> SortedIndex:
     """Sort ``index`` (values in [0, n]; n, the ghost, is dropped by every
     sum) once.  ``presorted`` takes an index that must already be
-    non-decreasing, and raises ``ValueError`` if it is not.  ``counts``
+    non-decreasing, and raises ``ValueError`` if it is not (unchecked with
+    ``check`` False: fake tensors hold no values to check).  ``counts``
     False leaves the rows per id uncounted (None)."""
     index = index.to(torch.int32)
     if presorted:
-        if index.numel() > 1 and not bool((index[1:] >= index[:-1]).all()):
+        if check and index.numel() > 1 and \
+                not bool((index[1:] >= index[:-1]).all()):
             raise ValueError("index must be non-decreasing")
         ids, order = index, torch.arange(index.numel(), dtype=torch.int32,
                                          device=index.device)

@@ -43,10 +43,14 @@ class EdgePlan(NamedTuple):
     graph: SortedIndex | None  # graph_id, where it is non-decreasing
 
 
-def edge_plan(senders, receivers, graph_id, n_graphs: int) -> EdgePlan:
+def edge_plan(senders, receivers, graph_id, n_graphs: int,
+              check: bool = True) -> EdgePlan:
+    """The batch's plan; ``graph`` is None unless ``graph_id`` is
+    non-decreasing, which ``check`` False trusts without looking (fake
+    tensors hold no values)."""
     n = graph_id.shape[0]
     try:
-        graph = sorted_index(graph_id, n_graphs, presorted=True)
+        graph = sorted_index(graph_id, n_graphs, presorted=True, check=check)
     except ValueError:
         graph = None
     return EdgePlan(sorted_index(senders, n), sorted_index(receivers, n),

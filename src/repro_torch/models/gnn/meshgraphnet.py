@@ -84,7 +84,7 @@ def forward(cfg: MGNConfig, params, batch: GraphBatch):
     for i in range(cfg.n_layers):
         h, e = checkpoint(_block, layer(params["blocks"], i), h, e,
                           plan.senders, plan.receivers, valid,
-                          use_reentrant=False)
+                          use_reentrant=False, preserve_rng_state=False)
     return mlp_apply(params["dec"], h, act=F.relu)  # (N, d_out)
 
 

@@ -141,7 +141,7 @@ def forward(cfg: NequipConfig, params, batch: GraphBatch):
     for i in range(cfg.n_layers):
         s, V, T = checkpoint(_interact, cfg, layer(params["layers"], i), s, V,
                              T, rbf, env, rhat, plan.senders, plan.receivers,
-                             use_reentrant=False)
+                             use_reentrant=False, preserve_rng_state=False)
     atom_e = mlp_apply(params["head"], s, act=F.silu)[:, 0]
     return graph_sum(atom_e, batch._replace(plan=plan))
 

@@ -81,7 +81,8 @@ def forward(cfg: SchNetConfig, params, batch: GraphBatch):
     env = (cosine_cutoff(dist, cfg.cutoff) * valid)[:, None]
     for i in range(cfg.n_interactions):
         h = checkpoint(_block, layer(params["interactions"], i), h, rbf, env,
-                       plan.senders, plan.receivers, use_reentrant=False)
+                       plan.senders, plan.receivers, use_reentrant=False,
+                       preserve_rng_state=False)
     atom_e = mlp_apply(params["head"], h, act=shifted_softplus)[:, 0]  # (N,)
     return graph_sum(atom_e, batch._replace(plan=plan))
 

@@ -51,9 +51,20 @@ def _rope_freqs_on(head_dim: int, theta: float, device: torch.device):
     return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
 
 
+def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    """:func:`_rope_freqs_on`, but under a FakeTensorMode a fake tensor of
+    its shape (a fake tensor holds no values, and belongs to its mode: it
+    must not outlive it in the cache)."""
+    from torch._guards import detect_fake_mode
+
+    if detect_fake_mode() is not None:
+        return torch.empty(head_dim // 2, device=device)
+    return _rope_freqs_on(head_dim, theta, device)
+
+
 def apply_rope(x, positions, theta: float = 10000.0):
     """x (..., S, D) with D even; positions (..., S) integer."""
-    freqs = _rope_freqs_on(x.shape[-1], float(theta), x.device)  # (D/2,)
+    freqs = _rope_freqs(x.shape[-1], float(theta), x.device)     # (D/2,)
     ang = positions[..., None].float() * freqs                   # (..., S, D/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

@@ -97,7 +97,10 @@ def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,
     probs, gate_vals, gate_idx = route(params, x, top_k)
 
     me = probs.mean(dim=0)
-    ce = F.one_hot(gate_idx, e).float().sum(1).mean(dim=0) / top_k
+    # one_hot by comparison: F.one_hot reads the ids' range back to the
+    # host on real tensors (and not on fake ones), a sync and other ops
+    ce = (gate_idx[..., None] == torch.arange(e, device=x.device)).float() \
+        .sum(1).mean(dim=0) / top_k
     aux = e * torch.sum(me * ce)
 
     cap = max(1, int(capacity_factor * tl * top_k / e))

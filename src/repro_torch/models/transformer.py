@@ -25,7 +25,8 @@ training: ``loss_fn`` (the reference's sequence-chunked cross entropy) over
           the embedding lookup's is a segment_reduce sum
           (``models/gather.py``).  With ``cfg.remat`` each layer runs under
           ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
-          with nothing saveable, and so does each CE chunk.
+          with nothing saveable, and so does each CE chunk; no random op
+          runs inside, so no RNG state is kept for the recompute.
 """
 from __future__ import annotations
 
@@ -85,11 +86,15 @@ class LMConfig:
 
     def window_pattern(self):
         """(L,) int32 — per-layer sliding window (0 = global)."""
+        return torch.tensor(self.windows(), dtype=torch.int32)
+
+    def windows(self) -> list[int]:
+        """The per-layer windows of :meth:`window_pattern` as Python ints
+        (the layer loops read them with no tensor op)."""
         if self.local_ratio <= 0 or self.window <= 0:
-            return torch.zeros((self.n_layers,), dtype=torch.int32)
+            return [0] * self.n_layers
         pat = np.arange(self.n_layers) % (self.local_ratio + 1)
-        return torch.from_numpy(
-            np.where(pat < self.local_ratio, self.window, 0).astype(np.int32))
+        return np.where(pat < self.local_ratio, self.window, 0).tolist()
 
     def param_count(self) -> int:
         """Analytic parameter count (for MODEL_FLOPS roofline terms)."""
@@ -262,11 +267,11 @@ def _trunk(cfg: LMConfig, params, tokens, cache=None):
     names = ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     aux = 0.0
-    for i, window in enumerate(cfg.window_pattern().tolist()):
+    for i, window in enumerate(cfg.windows()):
         lp = _layer(params, i)
         if remat:
             x, a, _ = checkpoint(_block, cfg, lp, x, window, positions,
-                                 use_reentrant=False)
+                                 use_reentrant=False, preserve_rng_state=False)
         else:
             x, a, kv = _block(cfg, lp, x, window, positions)
             if cache is not None:
@@ -313,7 +318,7 @@ def loss_fn(cfg: LMConfig, params, batch, loss_chunk: int = 512):
         part = (x[:, j * c:(j + 1) * c], labels[:, j * c:(j + 1) * c],
                 embed_f)
         if torch.is_grad_enabled():
-            n_j, c_j = checkpoint(_chunk_ce, *part, use_reentrant=False)
+            n_j, c_j = checkpoint(_chunk_ce, *part, use_reentrant=False, preserve_rng_state=False)
         else:
             n_j, c_j = _chunk_ce(*part)
         nll = nll + n_j
@@ -437,7 +442,7 @@ def decode_step(cfg: LMConfig, params, cache, tokens):
         raise ValueError(f"the cache is full: {pos} of {max_len} positions "
                          "used")
     x = embedding(params["embed"], tokens)
-    for i, window in enumerate(cfg.window_pattern().tolist()):
+    for i, window in enumerate(cfg.windows()):
         lp = _layer(params, i)
         h = rmsnorm(x, lp["ln1"])
         if mla:
