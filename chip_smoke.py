@@ -89,9 +89,10 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       ``F.scaled_dot_product_attention`` timed at a global and a local
       layer's shapes (with the kernel/SDPA time ratio), and the smoke
       config's logits on the card against the CPU within 2e-4.
-  (m) the fleet at full width: 48 graphs (16 grid2d of sides 241..256, 16
-      small_world of 60000 + 365 i vertices, 8 grid3d of sides 33..40, 8
-      random_geometric of 32768 + 1024 i vertices), k=64, T=4, ell, through
+  (m) the fleet at full width: 24 graphs (8 grid2d of sides 241..255, 8
+      small_world of 60000 + 365 i vertices, i even, 4 grid3d of sides
+      33..39, 4 random_geometric of 32768 + 1024 i vertices, i even), k=64,
+      T=4, ell, through
       ``partition_fleet`` and through a loop of standalone ``partition()``
       calls: every member equal bit for bit, balanced, cuts recomputed on
       the host; jet_gain launched once per batched loop iteration, fewer
@@ -110,7 +111,7 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       200^2); the bucket map, with one bucket holding two true sizes; the
       warmup grid (every lane composition of each rung's families), a
       burst of 48 requests at 2000 req/s (throughput, occupancy), a Poisson
-      replay of 24 at half that throughput (p50/p95 latency, new allocator
+      replay of 12 at half that throughput (p50/p95 latency, new allocator
       segments); no new signature after warmup, jet_gain launched once per
       batched loop iteration, every response equal bit for bit to its
       standalone partition() on the card; peak memory, filler lanes.
@@ -228,6 +229,28 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       op's dispatch, against the launch alone.  (The dry run over every
       cell of the production meshes needs no card: ``python -m
       repro_torch.launch.dryrun --mesh both``.)
+  (z) the LM cells as sharded programs on a ``DeviceMesh``
+      (``launch/steps.sharded_step``).  (z1) Gemma-3 1B at full width and
+      depth on a one-rank NCCL mesh (1, 1): two train_4k steps at (v)'s
+      batch of 8, then a prefill of 4 x 4096 tokens and 8 greedy decode
+      steps: losses, parameters, logits and the cache bit for bit the
+      unsharded cell's; flash_attention, its backward and segment_reduce
+      launched as (v) counts them; step time and peak memory beside (v)'s.
+      (z2) 4 ranks as 4 processes on the one card over gloo (CUDA tensors)
+      on a (2, 2) ("data", "model") mesh: first whether gloo carries each
+      collective DTensor issues (``lm_sharded.probe``, each in processes
+      of its own, until the first refusal), and the dry run's prediction
+      of each step on a fake (2, 2) world; where gloo carries them all,
+      for Gemma-3 1B at full width and depth 6 (batch 4 x 1024) and
+      DeepSeek-V2-Lite's smoke config (experts over "model"): one train
+      step's loss within 1e-3 relative and each gradient leaf within 2e-2
+      (bfloat16) or 1e-4 (float32) relative L2 of the one-device step
+      (``SHARDED_GATES``); each rank's peak within ``PEAK_RATIO`` of the
+      prediction and its collectives by kind equal to that count; the
+      spawn and the joins time out at 240 s.  (With torch 2.11 gloo ends
+      its processes on an all-gather of CUDA tensors: the step is not run
+      there, and the four-rank check is the CPU tests'.)  (z3) a zero-head flash_attention call on the card
+      returns an empty output with no launch.
   The script ends by checking that no jax or repro (JAX package) module was
   imported.  ``--phases`` runs a subset, for debugging; such a run prints no
   result line.
@@ -1121,12 +1144,15 @@ def phase_fleet_small(tp):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# every other graph of the 48 that (m) ran up to PR 18: the script's time
+# limit (PR 19's (z) and a slower host took it to 1169.5 s)
 FLEET_JOBS = (
-    [("grid2d", (s, s), {}) for s in range(241, 257)]
-    + [("small_world", (60000 + 365 * i,), {"seed": i}) for i in range(16)]
-    + [("grid3d", (s, s, s), {}) for s in range(33, 41)]
+    [("grid2d", (s, s), {}) for s in range(241, 257, 2)]
+    + [("small_world", (60000 + 365 * i,), {"seed": i})
+       for i in range(0, 16, 2)]
+    + [("grid3d", (s, s, s), {}) for s in range(33, 41, 2)]
     + [("random_geometric", (32768 + 1024 * i,), {"seed": i})
-       for i in range(8)])
+       for i in range(0, 8, 2)])
 
 
 def _host_reads(run):
@@ -1148,7 +1174,7 @@ def _host_reads(run):
 
 
 def phase_fleet_full_width(tp, dev):
-    """(m): 48 graphs of a mesh/GNN pipeline's dataset, partitioned as one
+    """(m): 24 graphs of a mesh/GNN pipeline's dataset, partitioned as one
     fleet and one by one; every member equal, bit for bit."""
     import torch
 
@@ -1164,8 +1190,9 @@ def phase_fleet_full_width(tp, dev):
     graphs = [getattr(gen, fn)(*a, **kw) for fn, a, kw in FLEET_JOBS]
     n_all = sum(int(g.n) for g in graphs)
     m_all = sum(int(g.m) for g in graphs)
-    print(f"(m) {len(graphs)} graphs (16 grid2d 241..256, 16 small_world "
-          f"60000+365i, 8 grid3d 33..40, 8 random_geometric 32768+1024i): "
+    print(f"(m) {len(graphs)} graphs (8 grid2d 241..255, 8 small_world "
+          f"60000+365i, 4 grid3d 33..39, 4 random_geometric 32768+1024i, "
+          f"i even): "
           f"{n_all} vertices, {m_all} directed edges (made in "
           f"{time.perf_counter() - t0:.1f} s)")
     cfg = PartitionConfig(k=64, trials=4, backend="ell")
@@ -1379,7 +1406,7 @@ def phase_serve_full_width(tp):
     occ_burst = dict(server.stats["occupancy_hist"])
     rps = len(rec_burst) / burst_s
     # a Poisson stream at half the burst's throughput, on the same graphs
-    poisson = serve_cli.build_workload(dict(spec, count=24, seed=1,
+    poisson = serve_cli.build_workload(dict(spec, count=12, seed=1,
                                             rate_rps=rps / 2))
     for r in poisson:
         r["graph"] = by_family[r["family"]]
@@ -3780,9 +3807,274 @@ def phase_dryrun(tp, dev):
     return out
 
 
+# (z2): a train step of 4 gloo ranks on a (2, 2) mesh against the one-device
+# step of the same config: the loss's relative difference and each
+# gradient leaf's relative L2, bfloat16 at full width and float32 smoke
+SHARDED_GATES = {"bfloat16": (1e-3, 2e-2), "float32": (1e-3, 1e-4)}
+SHARDED_JOBS = (
+    # Gemma-3 1B at full width, depth 6 (five local layers, one global)
+    {"arch": "gemma3-1b", "shape": "train_4k", "smoke": False,
+     "config": {"n_layers": 6}, "cell_shape": {"batch": 4, "seq": 1024}},
+    # DeepSeek-V2-Lite's smoke config: MLA, 8 experts over "model"
+    {"arch": "deepseek-v2-lite-16b", "shape": "train_4k", "smoke": True},
+)
+
+
+def _full(tree_):
+    from repro_torch.launch import sharding as sh
+
+    return sh.full(tree_)
+
+
+def _sharded_one_rank(dev, v_result) -> dict:
+    """(z1) Gemma-3 1B at full width on a one-rank NCCL mesh: two train_4k
+    steps at (v)'s batch, a prefill of 4 x 4096 and 8 greedy decode steps
+    through ``steps.sharded_step``, each bit for bit the unsharded cell's."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels, tree
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import gnn_partitioned as gp
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import transformer as tf
+
+    arch = get_arch("gemma3-1b")
+    cfg = arch.config
+    s_len, gen = 4096, 8
+    arch = dataclasses.replace(arch, shapes=dict(
+        arch.shapes,
+        train_4k=dict(arch.shapes["train_4k"], batch=GEMMA_TRAIN_BATCH),
+        prefill_32k={"kind": "prefill", "seq": s_len, "batch": 4},
+        decode_32k={"kind": "decode", "seq": s_len + gen, "batch": 4}))
+    gp.init_rank(0, 1, gp.free_port(), dev)
+    try:
+        mesh = compat_make_mesh((1, 1), ("data", "model"), dev.type)
+        # two unsharded steps: their losses and the parameters after them
+        cell = steps.build_cell(arch, "train_4k", dev)
+        params, opt, batch = cell.args
+        cell = cell._replace(args=())
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        losses = []
+        for _ in range(2):
+            params, opt, m = cell.step_fn(params, opt, batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        want_launches = dict(kernels.launch_counts)
+        del opt
+        # the same two steps sharded
+        scell = steps.build_cell(arch, "train_4k", dev, mesh=mesh)
+        args = steps.sharded_args(scell, mesh)
+        step = steps.sharded_step(scell, mesh)
+        scell = scell._replace(args=())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        times, got_losses = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            p2, o2, m2 = step(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            got_losses.append(_full(m2["loss"]))
+            args = (p2, o2, args[2])
+        # besides (v)'s step: the unsharded parameters kept for the
+        # comparison, and each step's inputs alive beside its outputs
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(kernels.launch_counts)
+        fwd_n, bwd_n = lm_flash_launches(cfg)
+        per_step = {"flash_attention": fwd_n, "flash_attention_bwd": bwd_n,
+                    "segment_reduce": EMBED_SEGMENT_SUMS["lm"]}
+        want = {k: 2 * n for k, n in per_step.items()}
+        if {k: launches.get(k, 0) for k in want} != want or \
+                {k: want_launches.get(k, 0) for k in want} != want:
+            raise AssertionError(f"(z1) launches {launches} (unsharded "
+                                 f"{want_launches}) != {want} in two steps")
+        if not (all(map(_equal, got_losses, losses))
+                and _bitwise(_full(args[0]), params)):
+            raise AssertionError("(z1) the sharded steps' losses or "
+                                 "parameters differ from the unsharded ones")
+        del args, p2, o2
+        v_step = v_result.get("step_s") if v_result else None
+        v_peak = v_result.get("peak_bytes") if v_result else None
+        print(f"(z1) gemma3-1b train_4k at batch {GEMMA_TRAIN_BATCH} on a "
+              f"one-rank NCCL mesh: losses {[float(x) for x in losses]} and "
+              f"the parameters after 2 steps bit for bit the unsharded "
+              f"cell's; launches {launches} (the unsharded cell's "
+              f"{want_launches}); steps {', '.join(f'{t:.4f}' for t in times)}"
+              f" s ((v): {v_step}), peak {peak} B ((v): {v_peak})")
+        # prefill 4 x 4096 and 8 greedy decode steps
+        pcell = steps.build_cell(arch, "prefill_32k", dev, params=params,
+                                 mesh=mesh)
+        dcell = steps.build_cell(arch, "decode_32k", dev, params=params,
+                                 mesh=mesh)
+        tokens = pcell.args[1]
+
+        def prefill(p, t):
+            return tf.prefill(cfg, p, t, max_len=s_len + gen)
+
+        def decode(p, c, t):
+            return tf.decode_step(cfg, p, c, t)
+
+        pstep = steps.sharded_step(pcell._replace(step_fn=prefill), mesh)
+        dstep = steps.sharded_step(dcell._replace(step_fn=decode), mesh)
+        dparams = sh.distribute(params, pcell.in_specs[0], mesh)
+        with torch.no_grad():
+            logits, cache = prefill(params, tokens)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            slogits, scache = pstep(dparams, sh.distribute(
+                tokens, pcell.in_specs[1], mesh))
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            prefill_launches = dict(kernels.launch_counts)
+            same = _equal(_full(slogits), logits) and _bitwise(
+                {k: _full(v) for k, v in scache.items() if k != "len"},
+                {k: v for k, v in cache.items() if k != "len"})
+            t_dec = 0.0
+            for _ in range(gen):
+                tok = logits.argmax(-1).to(torch.int32)
+                logits, cache = decode(params, cache, tok)
+                t0 = time.perf_counter()
+                slogits, scache = dstep(dparams, scache, sh.distribute(
+                    tok, dcell.in_specs[2], mesh))
+                torch.cuda.synchronize()
+                t_dec += time.perf_counter() - t0
+                same = same and _equal(_full(slogits), logits)
+        if not same or prefill_launches.get("flash_attention") != \
+                cfg.n_layers:
+            raise AssertionError(f"(z1) the sharded prefill or decode differ "
+                                 f"from the unsharded ones (prefill launches "
+                                 f"{prefill_launches})")
+        print(f"(z1) prefill 4 x {s_len} and {gen} greedy decode steps "
+              f"through sharded_step: logits and cache bit for bit the "
+              f"unsharded ones; prefill {prefill_s:.4f} s "
+              f"({prefill_launches.get('flash_attention')} flash launches), "
+              f"decode {t_dec / gen * 1e3:.2f} ms a step")
+        return {"launches_two_steps": launches, "step_s": times,
+                "peak_bytes": peak, "prefill_s": prefill_s,
+                "decode_ms": t_dec / gen * 1e3, "bitwise": True,
+                "losses": [float(x) for x in losses]}
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_four_ranks(dev) -> dict:
+    """(z2) 4 ranks as 4 processes on the one card over gloo (CUDA
+    tensors), a (2, 2) mesh.  First whether gloo carries each collective
+    DTensor issues, each in processes of its own (``lm_sharded.probe``);
+    where it carries them all, one train step of each of SHARDED_JOBS
+    against the one-device step, the ranks' peaks against the dry run's
+    prediction and their collectives against its count.  Where it refuses
+    one, the step is not run: the refusal and the dry run's prediction of
+    the step are printed, and the multi-rank check is the CPU tests'."""
+    from repro_torch.launch import lm_sharded
+
+    t0 = time.perf_counter()
+    carried = lm_sharded.probe(4, "cuda", "gloo", timeout_s=120,
+                               until_refused=True)
+    print(f"(z2) gloo on CUDA tensors, 4 ranks on one card: {carried} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    out = {"gloo_cuda": carried}
+    for job in SHARDED_JOBS:
+        job = dict(job, mesh=(2, 2), axes=("data", "model"), grads=True)
+        t0 = time.perf_counter()
+        pred = lm_sharded.predict(job, 4)
+        pred_s = time.perf_counter() - t0
+        tag = f"(z2) {job['arch']}"
+        print(f"{tag}: the dry run's rank 0 on a fake (2, 2) world: peak "
+              f"{pred['peak_bytes']} B, collectives {pred['collectives']} "
+              f"({pred['collective_bytes']} B) ({pred_s:.1f} s)")
+        out[job["arch"]] = {"predicted_peak_bytes": pred["peak_bytes"],
+                            "predicted_collectives": pred["collectives"]}
+        if set(carried) != set(lm_sharded.PROBES) or \
+                not all(v is True for v in carried.values()):
+            continue
+        res = lm_sharded.run(job, 4, device="cuda", backend="gloo",
+                             timeout_s=240)
+        run_s = time.perf_counter() - t0 - pred_s
+        a = res[0]["against_one_device"]
+        dtype = "float32" if job["smoke"] else "bfloat16"
+        loss_tol, grad_tol = SHARDED_GATES[dtype]
+        ratios = [r["peak_bytes"] / pred["peak_bytes"] for r in res]
+        print(f"{tag} ({dtype}): loss {a['loss']:.7g} against the "
+              f"one-device {a['one_device_loss']:.7g} (relative "
+              f"{a['loss_rel']:.3g}, gate {loss_tol}); gradients' largest "
+              f"leaf relative L2 {a['grad_rel_l2_max']:.3g} (gate "
+              f"{grad_tol}); step {res[0]['step_s']:.2f} s; the spawn "
+              f"and step {run_s:.1f} s")
+        print(f"{tag} peaks {[r['peak_bytes'] for r in res]} B (ratios to "
+              f"the prediction {', '.join(f'{x:.4f}' for x in ratios)}); "
+              f"collectives {[r['collectives'] for r in res]}")
+        if not (a["loss_rel"] <= loss_tol and a["grad_rel_l2_max"] <=
+                grad_tol):
+            raise AssertionError(f"{tag} against one device: {a}")
+        if not all(PEAK_RATIO[0] <= x <= PEAK_RATIO[1] for x in ratios):
+            raise AssertionError(f"{tag} peak ratios {ratios} outside "
+                                 f"{PEAK_RATIO}")
+        if any(r["collectives"] != pred["collectives"] for r in res):
+            raise AssertionError(f"{tag} collectives differ from the dry "
+                                 "run's")
+        out[job["arch"]].update(
+            dtype=dtype, loss_rel=a["loss_rel"],
+            grad_rel_l2_max=a["grad_rel_l2_max"],
+            peak_bytes=[r["peak_bytes"] for r in res], peak_ratio=ratios,
+            collectives=res[0]["collectives"], launches=res[0]["launches"],
+            regions=res[0]["regions"], step_s=res[0]["step_s"])
+    return out
+
+
+def _zero_head_flash(dev) -> dict:
+    """(z3) a shard with no query head on the card: an empty output and
+    gradient, no launch."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q, k, v = (torch.zeros((2, 0, 128, 64), dtype=torch.bfloat16,
+                           device=dev, requires_grad=True) for _ in range(3))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    o = fa_ops.flash_attention(q, k, v, causal=True, window=0)
+    grads = torch.autograd.grad(o.sum(), (q, k, v), allow_unused=True)
+    torch.cuda.synchronize()
+    launched = dict(kernels.launch_counts)
+    if tuple(o.shape) != (2, 0, 128, 64) or any(launched.values()) or \
+            tuple(grads[0].shape) != (2, 0, 128, 64):
+        raise AssertionError(f"(z3) zero heads: output {tuple(o.shape)}, "
+                             f"launches {launched}")
+    print(f"(z3) a zero-head flash_attention call on the card: output "
+          f"{tuple(o.shape)}, gradient {tuple(grads[0].shape)}, no launch")
+    return {"shape": list(o.shape), "launches": launched}
+
+
+def phase_sharded(tp, dev, v_result=None) -> dict:
+    """(z) the LM cells as sharded programs on a DeviceMesh: one rank on
+    NCCL bit for bit, four gloo ranks on the card against one device and
+    the dry run, a zero-head shard."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()   # what earlier phases left cached
+    out = {"z1": _sharded_one_rank(dev, v_result)}
+    gc.collect()
+    torch.cuda.empty_cache()   # the card's memory to the four rank processes
+    out["z2"] = _sharded_four_ranks(dev)
+    out["z3"] = _zero_head_flash(dev)
+    return out
+
+
 PHASES = ("a", "b", "b2", "b3", "c", "d", "n", "p", "e", "g", "h", "m", "o",
           "i", "j", "k", "l", "q", "r", "s", "t", "u", "v", "w",
-          "x", "y")
+          "x", "y", "z")
 
 
 def main(argv=None) -> int:
@@ -3889,6 +4181,7 @@ def main(argv=None) -> int:
         entries.append(fm_train)
         segment.setdefault("train", {})["fm"] = \
             fm_train["launches_per_step"]["segment_reduce"]
+    lm = None
     if "v" in run:
         lm = timed("v", phase_gemma_training, tp, dev)
         flash_bwd["launches"] = lm["launches"]["flash_attention_bwd"]
@@ -3904,6 +4197,13 @@ def main(argv=None) -> int:
         jet_gain["partitioned"] = {"launches": part["jet_gain"]}
     if "y" in run:
         timed("y", phase_dryrun, tp, dev)
+    if "z" in run:
+        z = timed("z", phase_sharded, tp, dev, lm)
+        sharded = {"z1_launches_two_steps": z["z1"]["launches_two_steps"],
+                   "z1_bitwise": z["z1"]["bitwise"], "z2": z["z2"]}
+        flash["sharded"] = dict(sharded, z3=z["z3"])
+        flash_bwd["sharded"] = sharded
+        segment["sharded"] = sharded
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if leaked:

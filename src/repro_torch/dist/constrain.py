@@ -15,14 +15,17 @@ unchanged, so the models stay runnable anywhere.  Given a
 placements: the torch counterpart of ``with_sharding_constraint``.
 
 The active mesh is the innermost :func:`constraint_mesh` scope (a
-``DeviceMesh``).  The port's models do not call ``constrain`` yet: placing
-their parameters as DTensors and annotating the reference's call sites is
-the sharded execution of the model zoo, a later item (ROADMAP Queue 1
-item 10).
+``DeviceMesh``).  The LM transformer and the MoE FFN call ``constrain`` at
+the reference's call sites; ``launch/steps.sharded_step`` runs a cell's
+step under its mesh.  One difference from the reference: a dim named
+``"batch"`` that the data-parallel axes do not divide (a smoke batch of 2
+over 16 devices) is replicated, where XLA pads the shards, because DTensor
+cannot form a product over rows sharded unevenly.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 
 _MESH_STACK: list = []
 
@@ -66,5 +69,10 @@ def constrain(x, *axes):
             not isinstance(x, DTensor):
         return x
     names = set(mesh.mesh_dim_names)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     spec = tuple(_resolve(a, names) for a in axes)
-    return x.redistribute(mesh, placements(mesh, spec))
+    spec = tuple(None if a == "batch" and r is not None and
+                 n % math.prod(sizes[x] for x in r) else r
+                 for a, r, n in zip(axes, spec, x.shape))
+    pl = placements(mesh, spec)
+    return x if tuple(x.placements) == pl else x.redistribute(mesh, pl)

@@ -75,6 +75,8 @@ def _bwd_library(name: str):
 
 
 def _check(q, k, v) -> None:
+    """Shapes, types and devices of a call; a shard with no query head
+    (H = Hkv = 0) is a valid call with an empty result."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
             k.shape[:3] != v.shape[:3] or not 1 <= v.shape[3] <= MAX_DV:
         raise ValueError(f"q must be (B, H, Sq, D), k (B, Hkv, Skv, D) and v "
@@ -82,10 +84,12 @@ def _check(q, k, v) -> None:
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, h, _, d = q.shape
-    if k.shape[0] != b or k.shape[3] != d or k.shape[1] < 1 or \
-            h % k.shape[1] != 0:
+    if k.shape[0] != b or k.shape[3] != d or (h > 0 and (
+            k.shape[1] < 1 or h % k.shape[1] != 0)) or \
+            (h == 0 and k.shape[1] != 0):
         raise ValueError(f"k {tuple(k.shape)} does not fit q "
-                         f"{tuple(q.shape)}: same B and D, H % Hkv == 0")
+                         f"{tuple(q.shape)}: same B and D, H % Hkv == 0 "
+                         f"(or H = Hkv = 0)")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share one of {list(DTYPES)}, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -137,9 +141,9 @@ def _flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool, window: int,
         raise ValueError(f"flash_attention's backward takes D, Dv <= {max_d}, "
                          f"got {d}, {dv}")
     dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dvv.zero_()
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    if b * h == 0:
-        return dq, dk, dvv
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -196,6 +200,8 @@ def _forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """(o, lse): the plain version on the CPU; lse is empty (0,) unless
     ``with_lse``."""
+    if q.numel() == 0 or k.numel() == 0:
+        return _empty_forward(q, v, with_lse)
     if with_lse:
         o, lse = flash_attention_ref(q, k, v, causal, window, q_offset,
                                      return_lse=True)
@@ -208,8 +214,19 @@ def _no_lse(q):
     return torch.empty((0,), dtype=torch.float32, device=q.device)
 
 
+def _empty_forward(q, v, with_lse: bool):
+    """The forward's result where q or k holds no element (a shard with
+    no query head, an empty batch or sequence): zeros, no launch."""
+    b, h, sq, _ = q.shape
+    lse = torch.full((b, h, sq), float("-inf"), device=q.device) \
+        if with_lse else _no_lse(q)
+    return q.new_zeros((b, h, sq, v.shape[3])), lse
+
+
 @_forward_op.register_kernel("cuda")
 def _(q, k, v, causal, window, q_offset, with_lse):
+    if q.numel() == 0 or k.numel() == 0:
+        return _empty_forward(q, v, with_lse)
     if with_lse:
         return _flash_attention_cuda(q, k, v, causal, window, q_offset, True)
     return (_flash_attention_cuda(q, k, v, causal, window, q_offset),
@@ -230,6 +247,8 @@ def _backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                  causal: bool, window: int, q_offset: int
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if q.numel() == 0 or k.numel() == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     return tuple(x.contiguous() for x in flash_attention_bwd_ref(
         q, k, v, o, lse, do, causal, window, q_offset))
 
@@ -286,9 +305,14 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     0, over the last ``window`` positions only.  A row with no visible key
     is 0.  CPU tensors go to the plain version, CUDA tensors to the kernel.
     Where q, k or v needs a gradient, the backward kernel (its plain
-    version on the CPU) gives it.
+    version on the CPU) gives it.  DTensors go to
+    :func:`_sharded_flash_attention`, the kernel on each rank's shards.
     """
     _check(q, k, v)
+    from repro_torch.dist import regions
+
+    if regions.is_dtensor(q):
+        return _sharded_flash_attention(q, k, v, causal, window, q_offset)
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
@@ -296,3 +320,69 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, q_offset)
     return _forward_op(q, k, v, causal, window, q_offset, False)[0]
+
+
+def _kv_heads(kl, vl, h0: int, h1: int, group: int):
+    """The kv heads that query heads [h0, h1) attend to, as a shard's call
+    of the kernel needs them (its head h maps to kv head h // (its H / its
+    Hkv)): a slice where the shard holds whole groups or lies in one, else
+    each query head's kv head repeated (heads straddling two groups)."""
+    if h1 == h0:
+        return kl[:, :0], vl[:, :0]
+    first, last = h0 // group, (h1 - 1) // group
+    if (h0 % group == 0 and h1 % group == 0) or first == last:
+        return kl[:, first:last + 1], vl[:, first:last + 1]
+    counts = [min(h1, (j + 1) * group) - max(h0, j * group)
+              for j in range(first, last + 1)]
+
+    def repeat(x):
+        return torch.cat([x[:, j:j + 1].expand(-1, c, -1, -1) for j, c in
+                          zip(range(first, last + 1), counts)], dim=1)
+
+    return repeat(kl), repeat(vl)
+
+
+def _sharded_flash_attention(q, k, v, causal: bool, window: int,
+                             q_offset: int):
+    """flash_attention on DTensors (the ``flash_attention`` region of
+    ``dist/regions.py``): along each mesh dim, q's batch rows (``Shard(0)``)
+    shard k, v and the output alike; q's heads (``Shard(1)``) shard the
+    output, and k, v are replicated there unless Hkv = H (MLA: sharded
+    alike).  Any other layout of q is replicated first.  Each rank calls
+    the kernel on its shards with the kv heads of its global query heads
+    (:func:`_kv_heads`); the gradients of replicated k, v are each rank's
+    share of a sum (``Partial``).  A rank with no query head (H smaller
+    than the head axes) makes no launch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.dist import regions
+
+    mesh = q.device_mesh
+    h, hkv = q.shape[1], k.shape[1]
+    q_pl, kv_pl, kv_grad = [], [], []
+    for p in q.placements:
+        if isinstance(p, Shard) and p.dim in (0, 1):
+            q_pl.append(p)
+            shared = p.dim == 0 or hkv == h
+            kv_pl.append(p if shared else Replicate())
+            kv_grad.append(p if shared else Partial())
+        else:
+            q_pl += [Replicate()]
+            kv_pl += [Replicate()]
+            kv_grad += [Replicate()]
+    q = regions.to(q, q_pl)
+    k, v = (regions.to(x, kv_pl) if regions.is_dtensor(x) else
+            regions.replicated(x, mesh, kv_pl) for x in (k, v))
+    slice_kv = hkv != h and any(isinstance(p, Shard) and p.dim == 1
+                                for p in q_pl)
+
+    def local(ql, kl, vl):
+        if slice_kv:
+            h0, h1 = regions.shard_range(mesh, q_pl, 1, h)
+            kl, vl = _kv_heads(kl, vl, h0, h1, h // hkv)
+        return flash_attention(ql, kl, vl, causal, window, q_offset)
+
+    return regions.run("flash_attention", local, mesh, (q, k, v),
+                       (q_pl, kv_pl, kv_pl), q_pl, (q_pl, kv_grad, kv_grad),
+                       (*q.shape[:3], v.shape[3]))
+

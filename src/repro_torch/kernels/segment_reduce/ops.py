@@ -111,16 +111,73 @@ def _(data, seg_ids, num_segments):
 op_costs["repro_torch::segment_reduce"] = segment_reduce_cost
 
 
-def segment_sum_sorted(data, seg_ids, num_segments: int):
+def segment_sum_sorted(data, seg_ids, num_segments: int,
+                       out_placements=None):
     """Sorted-segment sum: data (M, F), seg_ids (M,) int32 non-decreasing.
 
     Returns (num_segments, F); rows whose id lies outside [0, num_segments)
     are dropped.  A CPU tensor goes to the plain version, a CUDA tensor to
     the kernel.  The kernel trusts the order of ``seg_ids``: ids that
-    decrease give a wrong sum, unchecked.
+    decrease give a wrong sum, unchecked.  DTensors go to
+    :func:`_sharded_segment_sum` (``out_placements`` asks for an output
+    sharded by segment range there).
     """
+    from repro_torch.dist import regions
+
+    if regions.is_dtensor(data):
+        return _sharded_segment_sum(data, seg_ids, num_segments,
+                                    out_placements)
     _check(data, seg_ids, num_segments)
     if data.device.type not in ("cuda", "cpu"):
         raise ValueError(f"segment_reduce runs on cpu or cuda, not "
                          f"{data.device}")
     return _op(data, seg_ids, num_segments)
+
+
+def _sharded_segment_sum(data, seg_ids, num_segments: int,
+                         out_placements=None):
+    """segment_sum_sorted on DTensors (the ``segment_reduce`` region of
+    ``dist/regions.py``), along each mesh dim:
+
+    * data rows sharded (``Shard(0)``): the ids sharded alike, each rank's
+      rows non-decreasing; each rank sums its rows and the output is the
+      sum of the ranks' (``Partial``);
+    * data replicated and ``out_placements`` ``Shard(0)`` there: the output
+      sharded by segment range (a vocab-parallel embedding's gradient);
+      each rank shifts the ids by its range's start, and the kernel drops
+      the rows outside [0, its segment count);
+    * data features sharded (``Shard(1)``): the output sharded alike;
+    * else replicated.
+
+    Integer sums stay exact; a float sum under ``Partial`` adds the ranks'
+    sums in another order than one device does."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.dist import regions
+
+    mesh = data.device_mesh
+    want = list(out_placements or [Replicate()] * mesh.ndim)
+    d_pl, i_pl, o_pl = [], [], []
+    for d, p in enumerate(data.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            d_pl.append(p), i_pl.append(p), o_pl.append(Partial())
+        elif isinstance(p, Shard) and p.dim == 1:
+            d_pl.append(p), i_pl.append(Replicate()), o_pl.append(p)
+        elif isinstance(want[d], Shard) and want[d].dim == 0:
+            d_pl.append(Replicate()), i_pl.append(Replicate())
+            o_pl.append(Shard(0))
+        else:
+            d_pl.append(Replicate()), i_pl.append(Replicate())
+            o_pl.append(Replicate())
+    data = regions.to(data, d_pl)
+    seg_ids = regions.to(seg_ids, i_pl)
+
+    def local(dl, il):
+        s0, s1 = regions.shard_range(mesh, o_pl, 0, num_segments)
+        if s0:
+            il = il - s0
+        return segment_sum_sorted(dl, il, s1 - s0)
+
+    return regions.run("segment_reduce", local, mesh, (data, seg_ids),
+                       (d_pl, i_pl), o_pl, (d_pl, None),
+                       (num_segments, data.shape[1]))

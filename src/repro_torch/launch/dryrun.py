@@ -22,11 +22,25 @@ where the quantity is the same:
   ``memory.port_only_bytes``: per device, by path, the leaves it has not
   (a GNN batch's edge plan, ``steps.PORT_ONLY``);
 * ``cost.flops``, ``cost.transcendentals``, ``cost.bytes``: the counts of
-  ``op_cost`` for the whole step (every device's share together: the port
-  does not partition a step), with ``cost.by_kernel`` (each hand-written
-  kernel's calls and cost, by its formula), ``cost.flops_16bit`` (flops of
-  ops on 16-bit inputs), ``cost.model_flops_ratio`` (counted flops over
-  ``meta.model_flops``) and ``cost.devices``.
+  ``op_cost``, with ``cost.by_kernel`` (each hand-written kernel's calls
+  and cost, by its formula), ``cost.flops_16bit`` (flops of ops on 16-bit
+  inputs), ``cost.model_flops_ratio`` (counted flops over
+  ``meta.model_flops``, a device's times the devices where ``cost`` is a
+  device's) and ``cost.devices``.  ``cost.scope`` says whose they are:
+  ``"device"`` for the LM cells on a production mesh, which run sharded
+  (``steps.sharded_step`` on rank 0 of the fake group, counted with
+  ``op_cost``'s ``per_device``: the ops on that rank's shards), ``"step"``
+  for the whole step on one device (the FM and GNN cells, whose sharded
+  cells are a later item, and the card).  An LM cell on a mesh keeps the
+  whole step's counts under ``cost_step``;
+* LM cells on a mesh: ``memory.peak_bytes``, the most bytes one device
+  holds at once in the sharded run (its argument shards included), and
+  ``collectives``: ``{kind: {count, bytes}}`` for all-reduce, all-gather,
+  reduce-scatter, all-to-all and collective-permute (the bytes of each
+  collective's result on that device, as the reference counts them), with
+  ``total_bytes`` and ``total_count``.  A train cell whose batch its
+  data-parallel devices do not divide (the smoke shapes') is not run
+  sharded; its record says why under ``sharded``.
 
 The mesh ``card`` is one H100: no mesh, the one-device microbatch rule.
 Its record adds ``memory.peak_bytes`` (the most bytes live at once in the
@@ -44,9 +58,10 @@ the larger token batch.
 
 Skipped cells (a ``None`` shape) are recorded as ``skipped`` with the
 reason, as the reference records them; the run exits 1 on any ``error``.
-The reference's XLA-only keys — ``compile_s``, ``temp_bytes``,
-``alias_bytes``, ``collectives`` — have no counterpart until the cells run
-sharded (ROADMAP Queue 1 item 10) and are not written.
+The reference's XLA-only keys (``compile_s``, ``temp_bytes``,
+``alias_bytes``) have no counterpart and are not written; the FM and GNN
+cells' collectives and per-device peaks wait for their sharded cells
+(ROADMAP Queue 1 item 10b).
 """
 from __future__ import annotations
 
@@ -100,39 +115,62 @@ def _with_batch(arch, shape_name: str, batch: int):
                                              shape_name: shape})
 
 
-def _count(arch, shape_name: str, cell, fake, track_memory: bool) -> dict:
-    """op_cost's count of one step of ``cell``, built in the FakeTensorMode
-    ``fake`` (by extrapolation above ``EXTRAPOLATE_ABOVE`` microbatches,
-    see the module)."""
+def _analyze(cell, mesh, track_memory: bool) -> dict:
+    """op_cost's count of one step of ``cell``: the whole step, or with a
+    ``mesh`` one device's share of the sharded step."""
     from repro_torch.launch import steps
     from repro_torch.launch.op_cost import analyze_step
+
+    if mesh is None:
+        return analyze_step(cell.step_fn, *cell.args,
+                            track_memory=track_memory)
+    return analyze_step(steps.sharded_step(cell, mesh),
+                        *steps.sharded_args(cell, mesh),
+                        track_memory=track_memory, per_device=True)
+
+
+def _count(arch, shape_name: str, cell, fake, track_memory: bool,
+           mesh=None) -> dict:
+    """op_cost's count of one step of ``cell``, built in the FakeTensorMode
+    ``fake`` (by extrapolation above ``EXTRAPOLATE_ABOVE`` microbatches,
+    see the module); with a ``mesh`` (a cell built with it), one device's
+    share of the sharded step."""
+    from repro_torch.launch import steps
 
     mb = cell.meta.get("microbatches", 1)
     if mb <= EXTRAPOLATE_ABOVE:
         with fake:
-            return analyze_step(cell.step_fn, *cell.args,
-                                track_memory=track_memory)
+            return _analyze(cell, mesh, track_memory)
     per_mb = cell.args[2]["tokens"].shape[0] // mb
     runs = []
     for k in (2, 3):
         with fake:
             small = steps.build_cell(
                 _with_batch(arch, shape_name, per_mb * k), shape_name, "cpu",
-                tuning={"microbatches": k})
-            runs.append((small, analyze_step(
-                small.step_fn, *small.args, track_memory=track_memory)))
+                tuning={"microbatches": k}, mesh=mesh)
+            runs.append((small, _analyze(small, mesh, track_memory)))
     (c2, r2), (_, r3) = runs
+
+    def line(a, b):
+        return a + (mb - 2) * (b - a)
+
     out = dict(r2)
     for key in ("flops", "transcendentals", "bytes", "ops", "flops_16bit"):
-        out[key] = r2[key] + (mb - 2) * (r3[key] - r2[key])
+        out[key] = line(r2[key], r3[key])
     out["by_kernel"] = {
-        name: {k: v + (mb - 2) * (r3["by_kernel"][name][k] - v)
-               for k, v in c.items()} for name, c in r2["by_kernel"].items()}
+        name: {k: line(v, r3["by_kernel"][name][k]) for k, v in c.items()}
+        for name, c in r2["by_kernel"].items()}
+    if "collectives" in r2:
+        out["collectives"] = {
+            k: ({f: line(v[f], r3["collectives"][k][f]) for f in v}
+                if isinstance(v, dict) else line(v, r3["collectives"][k]))
+            for k, v in r2["collectives"].items()}
     out["microbatches_run"] = [2, 3]
     if track_memory:
         tokens = cell.args[2]["tokens"]
+        devs = 1 if mesh is None else steps._dp_size(mesh)
         out["peak_bytes"] = r2["peak_bytes"] + 2 * (
-            tokens.numel() - c2.args[2]["tokens"].numel()) * 4
+            tokens.numel() - c2.args[2]["tokens"].numel()) * 4 // devs
     return out
 
 
@@ -192,20 +230,59 @@ def records(arch, shape_name: str, mesh_names) -> list[dict]:
                 "port_only_bytes": {x["path"]: x["device_bytes"]
                                     for x in leaves if x["port_only"]}}
             peak = cost.pop("peak_bytes", None)
-            rec["cost"] = dict(cost, devices=n_dev, model_flops_ratio=(
-                cost["flops"] / cell.meta["model_flops"]
-                if cell.meta["model_flops"] else None))
+            rec["cost"] = _cost(cost, n_dev, 1, cell.meta, "step")
             rec["meta"] = cell.meta
             if card:
                 rec["memory"].update(peak_bytes=peak,
                                      fits_card=peak <= CARD_BYTES)
                 rec["bound"] = card_bound(cost)
+            elif cell.in_specs is not None and _uneven_train(cell, mesh):
+                rec["sharded"] = _uneven_train(cell, mesh)
+            elif cell.in_specs is not None:   # an LM cell: run it sharded
+                with fake_world(n_dev):
+                    mesh = _mesh(mesh_name)
+                    with fake:
+                        cell = steps.build_cell(arch, shape_name, "cpu",
+                                                mesh=mesh)
+                    dev = _count(arch, shape_name, cell, fake, True, mesh)
+                rec["cost_step"] = rec["cost"]
+                rec["memory"]["peak_bytes"] = dev.pop("peak_bytes")
+                rec["collectives"] = dev.pop("collectives")
+                rec["cost"] = _cost(dev, n_dev, n_dev, cell.meta, "device")
         except Exception as e:  # a failed cell is a bug — record it loudly
             rec["status"] = "error"
             rec["error"] = f"{type(e).__name__}: {e}"
             rec["traceback"] = traceback.format_exc()[-4000:]
         rec["total_s"] = time.perf_counter() - t0
     return out
+
+
+def _uneven_train(cell, mesh) -> str | None:
+    """Why a train cell is not run sharded, or None: a batch that its
+    data-parallel devices do not divide (the smoke shapes' 2 rows over 16
+    or 32) is replicated by ``constrain``, and DTensor's backward then
+    shards products over the idle data axes in strided shards that its
+    propagation cannot follow on fake tensors.  Every full-size cell's
+    batch divides."""
+    from repro_torch.launch import steps
+
+    if cell.meta["kind"] != "train":
+        return None
+    batch, n_dp = cell.args[2]["tokens"].shape[0], steps._dp_size(mesh)
+    if batch % n_dp == 0:
+        return None
+    return (f"not run sharded: a batch of {batch} over {n_dp} "
+            f"data-parallel devices")
+
+
+def _cost(counts: dict, n_dev: int, share: int, meta: dict,
+          scope: str) -> dict:
+    """A record's ``cost``: ``counts`` (of one device's share of the step
+    when ``share`` is the devices, else the whole step) with the devices,
+    the scope and the counted flops over the model's."""
+    mf = meta["model_flops"]
+    return dict(counts, devices=n_dev, scope=scope, model_flops_ratio=(
+        counts["flops"] * share / mf if mf else None))
 
 
 def record(arch, shape_name: str, mesh_name: str) -> dict:

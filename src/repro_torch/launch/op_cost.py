@@ -34,9 +34,22 @@ that the step's ops made or that :meth:`OpCost.track` was given (its
 inputs): ``peak_bytes`` is the most held at once, the fake run's
 counterpart of ``torch.cuda.max_memory_allocated``.  Work inside a custom
 op (a kernel's scratch) is not seen.
+
+``per_device`` counts a sharded step (DTensors, ``steps.sharded_step``) as
+one device runs it: the mode lets each DTensor op desugar into the ops on
+this rank's local shards and its collectives (as ``CommDebugMode`` does),
+and counts those; the inputs' live bytes are their local shards.  The ops
+that DTensor's sharding propagation runs on fake tensors of the global
+shapes, to learn an output's shape, are not the device's and are not
+counted (:func:`_propagation_uncounted`).  Each
+collective of ``torch.distributed._functional_collectives`` is counted by
+kind under the reference's names (``KINDS``), with the bytes of its
+result, as the reference's ``parse_collectives`` counts the result type
+of each collective op; it adds no flops and no device-memory bytes.
 """
 from __future__ import annotations
 
+import contextlib
 import weakref
 from collections import Counter, defaultdict
 
@@ -82,11 +95,25 @@ _SCATTERS = {"index_put": 2, "index_put_": 2, "_index_put_impl_": 2,
              "index_add_": 3, "index_copy": 3, "index_copy_": 3}
 _UPDATES = {"slice_scatter": 1, "select_scatter": 1, "diagonal_scatter": 1}
 _WRITES = {"fill_", "zero_"}  # write their output, read nothing
+# functional collectives -> the reference's kinds (dryrun.py _COLLECTIVES)
+COLLECTIVES = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+               "all_gather_into_tensor": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_to_all_single": "all-to-all",
+               "all_reduce_coalesced": "all-reduce",
+               "all_gather_into_tensor_coalesced": "all-gather",
+               "reduce_scatter_tensor_coalesced": "reduce-scatter"}
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "collective-permute")
 
 
 def _tensors(tree) -> list:
     """The tensors in an op's arguments or outputs (nested lists, tuples
-    and dicts)."""
+    and dicts); a DTensor's local shard."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, DTensor):
+        return [tree._local_tensor]
     if isinstance(tree, torch.Tensor):
         return [tree]
     if isinstance(tree, (list, tuple)):
@@ -150,8 +177,11 @@ class OpCost(TorchDispatchMode):
     whose op's first input is a 16-bit float (what tensor cores can take),
     and ``by_kernel`` has the calls and cost of each hand-written kernel."""
 
-    def __init__(self, track_memory: bool = False):
+    def __init__(self, track_memory: bool = False, per_device: bool = False):
         super().__init__()
+        self.per_device = per_device
+        self.paused = 0    # inside DTensor's shape propagation
+        self.collectives = {k: {"count": 0, "bytes": 0} for k in KINDS}
         self.flops = self.transcendentals = self.bytes = self.ops = 0
         self.flops_16bit = 0
         self.by_kernel: dict = defaultdict(Counter)
@@ -178,9 +208,22 @@ class OpCost(TorchDispatchMode):
         self.live_bytes -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if self.per_device and any(issubclass(t, DTensor) for t in types):
+            return NotImplemented    # count the local ops it desugars into
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if self.paused:
+            return out
         if func.namespace == "prim":  # a fake tensor's device query
+            return out
+        if func.namespace in ("_c10d_functional", "c10d_functional"):
+            kind = COLLECTIVES.get(func._overloadpacket.__name__)
+            if kind is not None:
+                self.collectives[kind]["count"] += 1
+                self.collectives[kind]["bytes"] += sum(
+                    _bytes(t) for t in _tensors(out))
             return out
         name = func._schema.name
         formula = op_costs.get(name)
@@ -211,19 +254,58 @@ class OpCost(TorchDispatchMode):
                              sorted(self.by_kernel.items())}}
         if self.track_memory:
             out["peak_bytes"] = self.peak_bytes
+        if self.per_device:
+            c = {k: dict(v) for k, v in self.collectives.items()}
+            c["total_bytes"] = sum(v["bytes"] for v in self.collectives
+                                   .values())
+            c["total_count"] = sum(v["count"] for v in self.collectives
+                                   .values())
+            out["collectives"] = c
         return out
 
 
-def analyze_step(fn, *args, track_memory: bool = False) -> dict:
+@contextlib.contextmanager
+def _propagation_uncounted(mode: OpCost):
+    """Within it, the ops of DTensor's shape propagation (run on fake
+    tensors of the global shapes, and only on its cache's misses) pause
+    ``mode``."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+    name = next((n for n in ("_propagate_tensor_meta_non_cached",
+                             "_propagate_tensor_meta")
+                 if hasattr(ShardingPropagator, n)), None)
+    if name is None:
+        raise RuntimeError("this torch's DTensor has no shape propagation "
+                           "to leave out of a per-device count")
+    orig = getattr(ShardingPropagator, name)
+
+    def paused(self, *a, **k):
+        mode.paused += 1
+        try:
+            return orig(self, *a, **k)
+        finally:
+            mode.paused -= 1
+
+    setattr(ShardingPropagator, name, paused)
+    try:
+        yield
+    finally:
+        setattr(ShardingPropagator, name, orig)
+
+
+def analyze_step(fn, *args, track_memory: bool = False,
+                 per_device: bool = False) -> dict:
     """``fn(*args)`` run once under :class:`OpCost`: {"flops",
     "transcendentals", "bytes", "ops", "flops_16bit", "by_kernel":
     {kernel: {"calls",
     "flops", "transcendentals", "bytes"}}} (the role of ``analyze_hlo``),
     with ``peak_bytes`` (``args`` counted live from the start) where
-    ``track_memory``.  ``fn``'s own result is dropped."""
-    mode = OpCost(track_memory)
+    ``track_memory``; with ``per_device`` (a sharded step) one device's
+    counts and its ``collectives``.  ``fn``'s own result is dropped."""
+    mode = OpCost(track_memory, per_device)
     if track_memory:
         mode.track(args)
-    with mode:
+    with (_propagation_uncounted(mode) if per_device
+          else contextlib.nullcontext()), mode:
         fn(*args)
     return mode.result()

@@ -18,7 +18,8 @@ is its key path from ``repro_torch.tree`` written as the reference's
 into ``torch.distributed.tensor`` placements over a ``DeviceMesh``, and
 :func:`shard_shape` gives the shape that each device holds.  The meshes are
 ``DeviceMesh``es (``launch/mesh.py``); a rule reads only their axis names
-and sizes.
+and sizes.  :func:`distribute` lays a tree of full tensors out as DTensors
+by a spec tree, and :func:`full` gathers one back.
 """
 from __future__ import annotations
 
@@ -83,6 +84,52 @@ def placements(mesh, spec) -> tuple:
         for i in idx:
             out[i] = Shard(d)
     return tuple(out)
+
+
+def distribute(tree_, specs, mesh):
+    """``tree_`` (full tensors, the same values on every rank: each rank
+    builds them from the same seed) as DTensors laid out by ``specs`` (a
+    rule's result for it, or one spec for a single tensor; a None subtree
+    of specs replicates): each rank keeps its own block, with no
+    communication, in memory of its own (not a view that would keep the
+    full tensor alive).  Leaves that are not tensors (a cache's length) stay as
+    they are."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from torch.distributed.tensor import DTensor
+
+    def one(leaf, spec):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        d = distribute_tensor(leaf, mesh, placements(
+            mesh, _spec(leaf.ndim) if spec is None else
+            _spec(leaf.ndim, *spec)), src_data_rank=None)
+        local = d.to_local()
+        if local.untyped_storage().nbytes() > local.numel() * \
+                local.element_size():   # a view of the full tensor: own it
+            d = DTensor.from_local(local.clone(), mesh, d.placements,
+                                   run_check=False, shape=d.shape,
+                                   stride=d.stride())
+        return d
+
+    if not isinstance(tree_, (dict, list, tuple)):
+        return one(tree_, specs)
+    return tree.unflatten(tree_, [one(leaf, spec) for _, leaf, spec in
+                                  flatten_specs(tree_, specs)])
+
+
+def full(tree_):
+    """``tree_`` with every DTensor gathered to its full tensor (a
+    collective: every rank calls it); other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+
+    def one(leaf):
+        return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+    if not isinstance(tree_, (dict, list, tuple)):
+        return one(tree_)
+    return tree.tree_map(one, tree_)
 
 
 def shard_shape(mesh, spec, shape) -> tuple:

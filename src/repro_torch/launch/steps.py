@@ -2,14 +2,20 @@
 LM, FM and GNN train cells and the LM and FM serve cells.
 
 A cell is a plain callable with example inputs made from a seed, for one
-(arch, shape) pair: ``cell.step_fn(*cell.args)`` runs the step.  The
-reference's cells carry shardings over a device mesh; the port's run on one
-card, so they carry none, and :func:`arg_specs` gives the reference's
-spec of every argument leaf on a mesh (``launch/sharding.py``), for the dry
-run's per-device bytes.  Given a ``mesh``, an LM train cell takes the
-reference's microbatch count for it (the batch per data-parallel device);
-without one, the one-device rule.  Its ``zero1`` tuning (optimizer state
-sharded over the data axis) changes only the specs.  MeshGraphNet's
+(arch, shape) pair: ``cell.step_fn(*cell.args)`` runs the step.  Built
+with a ``mesh`` (a ``DeviceMesh``), an LM cell also carries the
+reference's ``in_shardings`` and ``out_shardings`` as spec trees
+(``launch/sharding.py``): ``in_specs`` from :func:`arg_specs`, the single
+source of the input specs, and ``out_specs``; :func:`sharded_step` runs it
+as a sharded program on DTensors (the counterpart of ``jax.jit(step,
+in_shardings=..., out_shardings=...)``).  An LM train cell on a mesh takes
+the reference's microbatch count for it (the batch per data-parallel
+device); without one, the one-device rule, and the cell is built as on one
+card, with no specs.  Its ``zero1`` tuning (parameters replicated over the
+data axes, optimizer state and gradients sharded over them) redistributes
+each microbatch's gradients to the 2D FSDP specs, as the reference's
+``constrain_grads`` does.  :func:`arg_specs` also gives the dry run the
+per-device bytes of every cell.  MeshGraphNet's
 partitioned mode (``tuning={"mode": "partitioned"}``) is one process per
 rank of a ``torch.distributed`` group, each building its rank's cell
 (``launch/gnn_partitioned.py``).
@@ -55,6 +61,8 @@ class Cell(NamedTuple):
     step_fn: Callable
     args: tuple           # example inputs, on the cell's device
     meta: dict            # model_flops, param_count, kind, tokens
+    in_specs: Any = None  # LM cells built with a mesh: a spec tree an arg
+    out_specs: Any = None  # and a spec tree an output (None: as it comes)
 
 
 GNN_MODULES = {
@@ -213,29 +221,78 @@ def _recsys_batch(cfg, batch: int, device) -> dict:
         cfg.n_fields, cfg.rows_per_field, batch, SEED, device))
 
 
+def _microbatch(v, i: int, mb: int):
+    """Microbatch ``i`` of ``mb`` of batch leaf ``v``: rows [i n, (i + 1)
+    n) of n = rows / mb; of a DTensor, that slice of each rank's rows (the
+    ``microbatch`` region), so no batch row moves between ranks: a
+    microbatch holds other rows than on one device, their sum the same
+    ones."""
+    from repro_torch.dist import regions
+
+    if not regions.is_dtensor(v):
+        n = v.shape[0] // mb
+        return v[i * n:(i + 1) * n]
+
+    def local(vl):
+        n = vl.shape[0] // mb
+        return vl[i * n:(i + 1) * n]
+
+    return regions.run("microbatch", local, v.device_mesh, (v,),
+                       (v.placements,), v.placements, None,
+                       (v.shape[0] // mb, *v.shape[1:]))
+
+
+def _laid_out(grads, like, specs=None):
+    """Gradients of DTensor parameters redistributed to the parameters'
+    placements, or to ``specs`` (a spec tree) on the constraint mesh; plain
+    gradients as they are."""
+    from repro_torch.dist import regions
+    from repro_torch.dist.constrain import current_mesh
+
+    if not regions.is_dtensor(tree.leaves(grads)[0]):
+        return grads
+    if specs is None:
+        return tree.tree_map(lambda g, p: regions.to(g, p.placements),
+                             grads, like)
+    mesh = current_mesh()
+    return tree.unflatten(grads, [
+        regions.to(g, sh.placements(mesh, sh._spec(g.ndim, *sp)))
+        for g, (_, _, sp) in zip(tree.leaves(grads),
+                                 sh.flatten_specs(like, specs))])
+
+
 def make_train_step(loss, microbatches: int = 1,
-                    opt_cfg: adamw.AdamWConfig | None = None):
+                    opt_cfg: adamw.AdamWConfig | None = None,
+                    grad_specs=None):
     """The train step (params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm", "lr"}) of ``loss(params, batch) -> (loss,
     metrics)``: its value and gradient, then one AdamW update.  With
     ``microbatches`` > 1 the batch is cut into that many equal slices along
     its first axis, their gradients summed in float32 and averaged, and
     their losses averaged (the reference's ``lax.scan`` over microbatches).
+
+    On DTensors (:func:`sharded_step`) each microbatch's gradients are laid
+    out as the parameters, or by ``grad_specs`` (ZeRO-1: the 2D FSDP
+    specs, the reference's ``constrain_grads``) before they are summed.
     """
     opt_cfg = opt_cfg or adamw.AdamWConfig()
 
+    def grad_of(params, part):
+        (li, _), gi = value_and_grad(loss, params, part)
+        return li, _laid_out(gi, params, grad_specs)
+
     def train_step(params, opt_state, b):
         if microbatches == 1:
-            (l, _), grads = value_and_grad(loss, params, b)
+            l, grads = grad_of(params, b)
         else:
-            n = next(iter(b.values())).shape[0] // microbatches
             l = 0.0
-            grads = tree.tree_map(
-                lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                      device=x.device), params)
+            grads = _laid_out(tree.tree_map(
+                lambda x: torch.zeros_like(x, dtype=torch.float32), params),
+                params, grad_specs)
             for i in range(microbatches):
-                part = {k: v[i * n:(i + 1) * n] for k, v in b.items()}
-                (li, _), gi = value_and_grad(loss, params, part)
+                part = {k: _microbatch(v, i, microbatches)
+                        for k, v in b.items()}
+                li, gi = grad_of(params, part)
                 grads = tree.tree_map(lambda a, x: a + x.float(), grads, gi)
                 l = l + li
             l = l / microbatches
@@ -244,6 +301,7 @@ def make_train_step(loss, microbatches: int = 1,
             opt_cfg, params, grads, opt_state)
         return params, opt_state, {"loss": l, **om}
 
+    train_step.loss = loss
     return train_step
 
 
@@ -261,7 +319,10 @@ def _lm_cell(arch: Arch, shape_name: str, cfg: tf.LMConfig, shape, params,
         mb = lm_microbatches(cfg, batch, seq, tuning, _dp_size(mesh))
         meta["microbatches"] = mb
         b = _lm_batch(cfg.vocab, batch, seq, device)
-        return Cell(make_train_step(lambda p, bb: tf.loss_fn(cfg, p, bb), mb),
+        grad_specs = (sh.lm_param_sharding(mesh, params)
+                      if mesh is not None and tuning.get("zero1") else None)
+        return Cell(make_train_step(lambda p, bb: tf.loss_fn(cfg, p, bb), mb,
+                                    grad_specs=grad_specs),
                     (params, adamw.init_state(params), b), meta)
     tokens = _lm_batch(cfg.vocab, batch, seq if kind == "prefill" else 1,
                        device)["tokens"]
@@ -478,7 +539,12 @@ def build_cell(arch: Arch, shape_name: str, device=None, smoke: bool = False,
     if params is None:
         gen = torch.Generator(device=device).manual_seed(SEED)
         params = module.init_params(cfg, gen)
-    return make(arch, shape_name, cfg, shape, params, device, tuning, mesh)
+    cell = make(arch, shape_name, cfg, shape, params, device, tuning, mesh)
+    if mesh is None or arch.family != "lm":
+        return cell
+    return cell._replace(in_specs=arg_specs(arch, cell, mesh, tuning),
+                         out_specs=_lm_out_specs(cfg, cell, mesh, tuning,
+                                                 arch))
 
 
 # ---------------------------------------------------------------------------
@@ -548,6 +614,74 @@ def arg_specs(arch: Arch, cell: Cell, mesh, tuning: dict | None = None):
     big_b = batch % n_dp == 0 and batch >= n_dp
     return (p_sh, sh.lm_cache_sharding(mesh, cache, batch),
             (dp,) if big_b else (None,))
+
+
+def _lm_out_specs(cfg, cell: Cell, mesh, tuning: dict, arch: Arch):
+    """The reference's ``out_shardings`` of an LM cell on ``mesh``: train
+    (params, opt_state, None); prefill (the logits', the cache's); decode
+    ((dp or None, "model"), the cache's)."""
+    kind = cell.meta["kind"]
+    p_sh, second = arg_specs(arch, cell, mesh, tuning)[:2]
+    if kind == "train":
+        return p_sh, second, None
+    dp = dp_axes(mesh)
+    if kind == "prefill":
+        batch, seq = cell.args[1].shape
+        cache = tf.init_cache(cfg, batch, seq, device="meta")
+        return (sh.lm_logits_sharding(mesh),
+                sh.lm_cache_sharding(mesh, cache, batch))
+    batch, n_dp = cell.args[2].shape[0], _dp_size(mesh)
+    big_b = batch % n_dp == 0 and batch >= n_dp
+    return (dp if big_b else None, "model"), second
+
+
+def sharded_args(cell: Cell, mesh) -> tuple:
+    """The cell's example inputs laid out on ``mesh`` as DTensors by its
+    ``in_specs`` (every rank builds the same seeded inputs and keeps its
+    blocks)."""
+    return tuple(sh.distribute(a, spec, mesh)
+                 for a, spec in zip(cell.args, cell.in_specs))
+
+
+def _lay_out(out, specs, mesh):
+    """Each DTensor of ``out`` redistributed to its spec in ``specs`` (a
+    spec tree of ``out``'s structure; None leaves a subtree as it comes)."""
+    from repro_torch.dist import regions
+
+    if specs is None:
+        return out
+    if isinstance(out, dict):
+        return {k: _lay_out(v, specs[k], mesh) for k, v in out.items()}
+    if isinstance(out, (list, tuple)) and not regions.is_dtensor(out):
+        return type(out)(_lay_out(v, sp, mesh) for v, sp in zip(out, specs))
+    if regions.is_dtensor(out):
+        return regions.to(out, sh.placements(
+            mesh, sh._spec(out.ndim, *specs)))
+    return out
+
+
+def sharded_step(cell: Cell, mesh):
+    """``cell.step_fn`` as a sharded program on ``mesh`` (the counterpart
+    of ``jax.jit(step, in_shardings, out_shardings)``): a function of
+    DTensors laid out by ``cell.in_specs`` (:func:`sharded_args`) that
+    runs the step with ``constrain`` resolving against ``mesh`` and
+    returns its outputs redistributed to ``cell.out_specs``.  Plain
+    tensors the step makes (positions, masks: the same on every rank) are
+    taken as replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.dist.constrain import constraint_mesh
+
+    if cell.in_specs is None:
+        raise ValueError("the cell carries no specs: build it with a mesh "
+                         "(LM cells)")
+
+    def step(*args):
+        with constraint_mesh(mesh), implicit_replication():
+            out = cell.step_fn(*args)
+        return _lay_out(out, cell.out_specs, mesh)
+
+    return step
 
 
 def argument_leaves(cell: Cell, specs=None, mesh=None) -> list[dict]:

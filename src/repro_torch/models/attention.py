@@ -7,10 +7,16 @@ module keeps the reference's other two paths as plain PyTorch:
 transformer uses where the port calls the kernel (kept for the tests), and
 ``decode_attention``, the cached single-token path, which the JAX package
 also computes outside any kernel.  GQA, causal and sliding-window masks.
+On DTensors (a sharded decode step) the query's heads are gathered (it is
+one token) and the cache's sequence shards stay where they are: DTensor
+gathers the (B, Hkv, group, S) scores for the softmax over S and sums the
+shards' products with the values (a ``Partial``).
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.dist import regions
 
 
 def repeat_kv(k, h: int):
@@ -77,6 +83,11 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *, window=0):
     b, h, _, d = q.shape
     hkv, s_len = k_cache.shape[1], k_cache.shape[2]
     group = h // hkv
+    if regions.is_dtensor(q):   # the one query: its heads gathered
+        from torch.distributed.tensor import Replicate, Shard
+
+        q = regions.to(q, [p if p == Shard(0) else Replicate()
+                           for p in q.placements])
     scale = 1.0 / (d ** 0.5)
     qg = (q.float() * scale).to(k_cache.dtype).reshape(b, hkv, group, d)
     sc = qg.float() @ k_cache.float().transpose(-1, -2)      # (B, Hkv, g, S)

@@ -13,9 +13,22 @@ its plain version on a CPU tensor.  So a training step repeats bit for bit.
   every sum.
 * :func:`embedding` is a table lookup (the LM's ``embed``, FM's ``table``
   and ``linear``) whose gradient is one kernel sum into the table's rows.
+
+On DTensors (a sharded step, ``launch/steps.sharded_step``) each runs in a
+named region of ``dist/regions.py``.  A table sharded by rows over some
+mesh axes is looked up vocab-parallel: each rank gathers the ids that fall
+in its rows, zeros elsewhere, and the output is the sum over those axes
+(``Partial``); its gradient is the segment_reduce kernel's sum with the
+output sharded by row range (each rank's ids shifted by its range's
+start), over each rank's own rows in their sorted order.  The rows of
+:func:`gather_nodes` and :func:`scatter_sum` are replicated (an index is
+one rank's, the same on every rank that holds the rows): each rank gathers
+or sums all rows of its feature shard, and the sums keep one fixed order
+within a rank.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -96,8 +109,39 @@ class _GatherNodes(torch.autograd.Function):
         return _segment_sum(grad, order, ids, ctx.n), None, None, None
 
 
+def _rows_replicated(x):
+    """DTensor ``x`` with its rows (dim 0) replicated, any other layout
+    kept, and those placements."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.dist import regions
+
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == 0 else p
+          for p in x.placements]
+    return regions.to(x, pl), pl
+
+
+def _sharded_rows(fn, x, index: SortedIndex, *extra):
+    """``fn`` (an autograd Function's apply) on each rank's block of
+    DTensor ``x``, rows replicated (the ``rows`` region)."""
+    from repro_torch.dist import regions
+
+    x, pl = _rows_replicated(x)
+    ix = tuple(regions.local(t) for t in (index.index, index.order,
+                                           index.ids))
+    rows = extra[0] if extra else index.index.shape[0]
+    return regions.run(
+        "rows", lambda xl, *a: fn(xl, *a, *extra), x.device_mesh,
+        (x,) + ix, (pl, None, None, None), pl, (pl, None, None, None),
+        (rows, *x.shape[1:]))
+
+
 def scatter_sum(values, index: SortedIndex, n: int):
     """values (E, ...), index in [0, n] -> (n, ...) (ghost dropped)."""
+    from repro_torch.dist import regions
+
+    if regions.is_dtensor(values):
+        return _sharded_rows(_ScatterSum.apply, values, index, n)
     return _ScatterSum.apply(values, index.index, index.order, index.ids, n)
 
 
@@ -109,6 +153,10 @@ def scatter_mean(values, index: SortedIndex, n: int):
 
 def gather_nodes(x, index: SortedIndex):
     """x (N, ...) gathered at (E,) indices in [0, N] (ghost row = zeros)."""
+    from repro_torch.dist import regions
+
+    if regions.is_dtensor(x):
+        return _sharded_rows(_GatherNodes.apply, x, index)
     return _GatherNodes.apply(x, index.index, index.order, index.ids)
 
 
@@ -135,9 +183,108 @@ def embedding(table, ids, index: SortedIndex | None = None):
     gradient is one segment_reduce sum of the output's rows in its sorted
     order.  Otherwise it is plain indexing, as a serving path has it.
     """
+    from repro_torch.dist import regions
+
+    if regions.is_dtensor(table):
+        return _sharded_embedding(table, ids)
     if not (torch.is_grad_enabled() and table.requires_grad):
         return table[ids.long()]
     if index is None:
         index = sorted_index(ids.reshape(-1), table.shape[0], counts=False)
     out = _Embedding.apply(table, index.index, index.order, index.ids)
     return out.reshape(*ids.shape, *table.shape[1:])
+
+
+def _embedding_layouts(table, ids):
+    """(table, ids, output) placements of a sharded lookup, along each mesh
+    dim: the table's rows sharded where they are (vocab-parallel: the ids
+    replicated there, the output a ``Partial`` sum), its features gathered
+    (FSDP); elsewhere the ids' batch rows shard the output alike."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.dist import regions
+
+    mesh = table.device_mesh
+    i_have = ids.placements if regions.is_dtensor(ids) else \
+        [Replicate()] * mesh.ndim
+    # rows that the ids' axes do not divide are gathered (see constrain)
+    shards = math.prod(mesh.size(d) for d, p in enumerate(i_have)
+                       if p == Shard(0))
+    even = ids.shape[0] % shards == 0
+    t_pl, i_pl, o_pl = [], [], []
+    for tp, ip in zip(table.placements, i_have):
+        if isinstance(tp, Shard) and tp.dim == 0:
+            t_pl.append(tp), i_pl.append(Replicate()), o_pl.append(Partial())
+        elif even and ip == Shard(0):
+            t_pl.append(Replicate()), i_pl.append(ip), o_pl.append(ip)
+        else:
+            t_pl.append(Replicate()), i_pl.append(Replicate())
+            o_pl.append(Replicate())
+    return t_pl, i_pl, o_pl
+
+
+class _ShardedEmbedding(torch.autograd.Function):
+    """The vocab-parallel lookup (``embedding`` region) and its gradient,
+    one segment_reduce sum sharded by row range (``segment_reduce``
+    region) over each rank's rows sorted by id (``sorted_index`` and
+    ``rows`` regions)."""
+
+    @staticmethod
+    def forward(ctx, table, ids, t_pl, i_pl, o_pl):
+        from repro_torch.dist import regions
+
+        mesh, v = table.device_mesh, table.shape[0]
+        ctx.save_for_backward(ids)
+        ctx.layouts = (t_pl, i_pl, o_pl)
+        ctx.vocab = v
+
+        def lookup(tl, il):
+            v0, v1 = regions.shard_range(mesh, t_pl, 0, v)
+            flat = il.reshape(-1).long() - v0
+            hit = (flat >= 0) & (flat < v1 - v0)
+            rows = _gather(tl, torch.where(hit, flat, v1 - v0))
+            return rows.reshape(*il.shape, *tl.shape[1:])
+
+        return regions.run("embedding", lookup, mesh, (table, ids),
+                           (t_pl, i_pl), o_pl, None,
+                           (*ids.shape, *table.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import Partial, Replicate
+
+        from repro_torch.dist import regions
+
+        (ids,) = ctx.saved_tensors
+        t_pl, i_pl, o_pl = ctx.layouts
+        mesh = ids.device_mesh
+        g_pl = [Replicate() if isinstance(p, Partial) else p for p in o_pl]
+        grad = regions.to(grad, g_pl)
+        width = grad.shape[ids.ndim:]
+        flat_ids = ids.reshape(-1)
+        rows = grad.reshape(flat_ids.shape[0], -1)
+
+        def sort(il):
+            sid, order = torch.sort(il, stable=True)
+            return order.to(torch.int32), sid
+
+        order, sid = regions.run("sorted_index", sort, mesh, (flat_ids,),
+                                 (i_pl,), (i_pl, i_pl), None,
+                                 (flat_ids.shape, flat_ids.shape))
+        rows = regions.run("rows", lambda rl, ol: rl.index_select(0, ol),
+                           mesh, (rows, order), (g_pl, i_pl), g_pl, None,
+                           rows.shape)
+        out = sr.segment_sum_sorted(rows, sid, ctx.vocab, out_placements=t_pl)
+        return out.reshape(ctx.vocab, *width), None, None, None, None
+
+
+def _sharded_embedding(table, ids):
+    """:func:`embedding` on a DTensor table (see the module)."""
+    from repro_torch.dist import regions
+
+    t_pl, i_pl, o_pl = _embedding_layouts(table, ids)
+    table = regions.to(table, t_pl)
+    ids = regions.to(ids, i_pl) if regions.is_dtensor(ids) else \
+        regions.replicated(ids, table.device_mesh, i_pl)
+    return _ShardedEmbedding.apply(table, ids.to(torch.int32), t_pl, i_pl,
+                                   o_pl)

@@ -37,7 +37,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.gather import gather_nodes, scatter_sum, sorted_index
+from repro_torch.models.gather import (
+    SortedIndex, gather_nodes, scatter_sum, sorted_index,
+)
 from repro_torch.models.layers import dense_init
 
 
@@ -79,22 +81,14 @@ def route(params, x, top_k: int):
     return probs, vals / vals.sum(dim=-1, keepdim=True), idx
 
 
-def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,
-              groups: int = 0):
-    """x (T, d) -> (out (T, d) in x's dtype, aux_loss float32 scalar).
-
-    ``groups`` > 1 splits the tokens into G dispatch groups of T / G tokens
-    (the reference's ``_moe_apply_grouped``): capacity, slots and drops are
-    per group.  The Switch-style aux loss averages over all T tokens either
-    way.
-    """
-    t, d = x.shape
-    e = params["router"].shape[1]
-    g = groups if groups > 1 else 1
-    if t % g:
-        raise ValueError(f"{t} tokens do not split into {g} groups")
+def _dispatch(router, x, top_k: int, capacity_factor: float, g: int):
+    """The dispatch of x (T, d) in ``g`` groups: (aux loss, the gate
+    weights of the (E, C) slots (g, E C) float32, the slots' token rows in
+    the groups' (T / g + 1)-row blocks (g E C,) long)."""
+    t, _ = x.shape
+    e = router.shape[1]
     tl = t // g
-    probs, gate_vals, gate_idx = route(params, x, top_k)
+    probs, gate_vals, gate_idx = route({"router": router}, x, top_k)
 
     me = probs.mean(dim=0)
     # one_hot by comparison: F.one_hot reads the ids' range back to the
@@ -132,24 +126,177 @@ def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,
     wtbl = torch.zeros((g, e * cap), dtype=torch.float32, device=dev) \
         .scatter_reduce(1, cell, torch.where(keep, sw, 0.0), "amax",
                         include_self=True)
-    # one sorted index over the groups' (tl + 1)-row blocks serves the
-    # gather, its gradient and the combine
-    rows = g * (tl + 1)
     flat = (idx + torch.arange(g, device=dev)[:, None] * (tl + 1)).reshape(-1)
-    index = sorted_index(flat, rows, counts=False)
-    xz = torch.cat([x.reshape(g, tl, d), x.new_zeros((g, 1, d))], 1)
-    xe = gather_nodes(xz.reshape(rows, d), index) \
-        .reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
-    h = F.silu(torch.bmm(xe, params["w_gate"])) \
-        * torch.bmm(xe, params["w_up"])
-    y = torch.bmm(h, params["w_down"])                          # (E, G C, d)
-    yw = y.reshape(e, g, cap, d).transpose(0, 1).reshape(g * e * cap, d) \
-        .float() * wtbl.reshape(-1, 1)
-    out = scatter_sum(yw, index, rows).reshape(g, tl + 1, d)
-    out = out[:, :tl].reshape(t, d)
+    return aux, wtbl, flat
+
+
+class _Fanout(torch.autograd.Function):
+    """``n`` uses of one tensor whose gradients are summed in the order of
+    the uses (autograd would add them in the order its nodes run, which a
+    sharded step's extra nodes change)."""
+
+    @staticmethod
+    def forward(ctx, x, n: int):
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = None
+        for g in grads:
+            if g is not None:
+                total = g if total is None else total + g
+        return total, None
+
+
+def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,
+              groups: int = 0):
+    """x (T, d) -> (out (T, d) in x's dtype, aux_loss float32 scalar).
+
+    ``groups`` > 1 splits the tokens into G dispatch groups of T / G tokens
+    (the reference's ``_moe_apply_grouped``): capacity, slots and drops are
+    per group.  The Switch-style aux loss averages over all T tokens either
+    way.
+
+    On DTensors (a sharded step) the tokens are gathered and every rank
+    runs the whole dispatch (the ``moe_dispatch`` region: top-k, argsort,
+    scatter max/min), so capacity and drops are the one-device ones.  The
+    experts are sharded over "model" (``constrain`` at the reference's
+    sites): each rank gathers the rows of its own experts' slots
+    (``moe_experts``) and sums its experts' weighted outputs into the
+    tokens (``moe_combine``), each by its own sorted index; the sum over
+    the experts' ranks is a ``Partial``.
+    """
+    from repro_torch.dist import regions
+    from repro_torch.dist.constrain import constrain
+
+    t, d = x.shape
+    e = params["router"].shape[1]
+    g = groups if groups > 1 else 1
+    if t % g:
+        raise ValueError(f"{t} tokens do not split into {g} groups")
+    tl = t // g
+    rows = g * (tl + 1)   # the groups' (tl + 1)-row blocks, a zero row each
+    x, x_in = _Fanout.apply(x, 2) if "shared" in params and \
+        torch.is_grad_enabled() and x.requires_grad else (x, x)
+    sharded = regions.is_dtensor(x)
+    if sharded:
+        from torch.distributed.tensor import Replicate
+
+        mesh = x.device_mesh
+        rep = [Replicate()] * mesh.ndim
+        x = regions.to(x, rep)
+        aux, wtbl, flat = regions.run(
+            "moe_dispatch",
+            lambda xl, rl: _dispatch(rl, xl, top_k, capacity_factor, g),
+            mesh, (x, regions.to(params["router"], rep)), (rep, rep),
+            (rep, rep, rep))
+        flat = flat.to_local()
+    else:
+        aux, wtbl, flat = _dispatch(params["router"], x, top_k,
+                                    capacity_factor, g)
+    cap = wtbl.shape[1] // e
+    xz = torch.cat([x.reshape(g, tl, d), x.new_zeros((g, 1, d))], 1) \
+        .reshape(rows, d)
+    if sharded:
+        xe = _sharded_experts(xz, flat, g, e, cap)
+    else:
+        # one sorted index serves the gather, its gradient and the combine
+        index = sorted_index(flat, rows, counts=False)
+        xe = _expert_rows(xz, index, g, e, cap)
+    xe = constrain(xe, "model", None, None)
+    hg = constrain(torch.bmm(xe, params["w_gate"]), "model", None, None)
+    hu = constrain(torch.bmm(xe, params["w_up"]), "model", None, None)
+    y = constrain(torch.bmm(F.silu(hg) * hu, params["w_down"]),
+                  "model", None, None)                          # (E, G C, d)
+    if sharded:
+        out = _sharded_combine(y, wtbl, flat, g, e, cap, rows)
+    else:
+        out = _combine(y, wtbl, index, g, cap, rows)
+    out = out.reshape(g, tl + 1, d)[:, :tl].reshape(t, d)
 
     if "shared" in params:
         sp = params["shared"]
-        hs = F.silu(x @ sp["w_gate"]) * (x @ sp["w_up"])
-        out = out + (hs @ sp["w_down"]).float()
+        gs = constrain(x_in @ sp["w_gate"], "batch", "model")
+        us = constrain(x_in @ sp["w_up"], "batch", "model")
+        out = out + constrain((F.silu(gs) * us) @ sp["w_down"],
+                              "batch", None).float()
     return out.to(x.dtype), aux
+
+
+def _expert_rows(xz, index: SortedIndex, g: int, ne: int, cap: int):
+    """The token rows of ``ne`` experts' slots (E, G C, d), gathered by
+    ``index`` from xz (the groups' rows)."""
+    d = xz.shape[1]
+    return gather_nodes(xz, index).reshape(g, ne, cap, d).transpose(0, 1) \
+        .reshape(ne, g * cap, d)
+
+
+def _combine(y, wtbl, index: SortedIndex, g: int, cap: int, rows: int):
+    """The experts' outputs y (E, G C, d) weighted by their slots' gates
+    wtbl (G, E C) and summed into the groups' rows by ``index``
+    (float32)."""
+    ne, _, d = y.shape
+    yw = y.reshape(ne, g, cap, d).transpose(0, 1).reshape(g * ne * cap, d) \
+        .float() * wtbl.reshape(-1, 1)
+    return scatter_sum(yw, index, rows)
+
+
+def _expert_layouts(mesh):
+    """(experts over "model", a sum over "model") placements."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    names = mesh.mesh_dim_names
+    return ([Shard(0) if n == "model" else Replicate() for n in names],
+            [Partial() if n == "model" else Replicate() for n in names])
+
+
+def _own_slots(mesh, e_pl, flat, g: int, e: int, cap: int):
+    """This rank's experts [e0, e1) and the token rows of their slots."""
+    from repro_torch.dist import regions
+
+    e0, e1 = regions.shard_range(mesh, e_pl, 0, e)
+    return e0, e1, flat.reshape(g, e, cap)[:, e0:e1].reshape(-1)
+
+
+def _sharded_experts(xz, flat, g: int, e: int, cap: int):
+    """The ``moe_experts`` region: each rank gathers the rows of its own
+    experts' slots from the replicated tokens xz; xz's gradient is each
+    rank's share of a sum over "model"."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.dist import regions
+
+    mesh = xz.device_mesh
+    e_pl, p_pl = _expert_layouts(mesh)
+    rep = [Replicate()] * mesh.ndim
+
+    def local(xl):
+        e0, e1, slots = _own_slots(mesh, e_pl, flat, g, e, cap)
+        return _expert_rows(xl, sorted_index(slots, xl.shape[0],
+                                             counts=False), g, e1 - e0, cap)
+
+    return regions.run("moe_experts", local, mesh, (xz,), (rep,), e_pl,
+                       (p_pl,), (e, g * cap, xz.shape[1]))
+
+
+def _sharded_combine(y, wtbl, flat, g: int, e: int, cap: int, rows: int):
+    """The ``moe_combine`` region: each rank sums its experts' weighted
+    outputs into the tokens by its own sorted index; the output is the sum
+    over "model" (``Partial``), as wtbl's gradient is."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.dist import regions
+
+    mesh = y.device_mesh
+    e_pl, p_pl = _expert_layouts(mesh)
+    rep = [Replicate()] * mesh.ndim
+    y = regions.to(y, e_pl)
+
+    def local(yl, wl):
+        e0, e1, slots = _own_slots(mesh, e_pl, flat, g, e, cap)
+        w = wl.reshape(g, e, cap)[:, e0:e1]
+        return _combine(yl, w, sorted_index(slots, rows, counts=False), g,
+                        cap, rows)
+
+    return regions.run("moe_combine", local, mesh, (y, wtbl), (e_pl, rep),
+                       p_pl, (e_pl, p_pl), (rows, y.shape[2]))

@@ -27,6 +27,16 @@ training: ``loss_fn`` (the reference's sequence-chunked cross entropy) over
           ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
           with nothing saveable, and so does each CE chunk; no random op
           runs inside, so no RNG state is kept for the recompute.
+sharded : on DTensors (``launch/steps.sharded_step``) the layers call
+          ``constrain`` where the reference does, under the same axis names
+          (``_res_spec``: the residual stream, sequence-parallel with
+          ``cfg.seq_parallel``); flash_attention, the embedding and the MoE
+          dispatch run in the regions of ``dist/regions.py``, and so do the
+          cross entropy over a vocab-sharded logits block
+          (``vocab_parallel_ce``) and the decode cache's writes
+          (``cache_write``).  With a mesh of one device every ``constrain``
+          is a no-op and each region runs the one-device code on the whole
+          tensors.
 """
 from __future__ import annotations
 
@@ -34,14 +44,17 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist import regions
+from repro_torch.dist.constrain import constrain
 from repro_torch.kernels.flash_attention import ops as flash
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.gather import embedding
 from repro_torch.models.layers import (
-    apply_rope, dense_init, embed_init, rmsnorm, swiglu,
+    apply_rope, dense_init, embed_init, rmsnorm,
 )
 
 
@@ -186,9 +199,54 @@ def _layer(params, i: int) -> dict:
     return _index(params["layers"], i)
 
 
+def _res_spec(cfg: LMConfig) -> tuple:
+    """The residual stream's axes: sequence-parallel shards S over 'model'
+    (the per-layer all-reduce becomes a reduce-scatter)."""
+    return ("batch", "model", None) if cfg.seq_parallel else (
+        "batch", None, None)
+
+
+def _fsdp(tree):
+    """Each DTensor weight of ``tree`` with its shards over the data-
+    parallel axes ("pod", "data") gathered, sharded over "model" only:
+    FSDP's gather before a layer's products, which the reference's XLA
+    places itself.  DTensor would otherwise pick the product's layout by
+    its bytes moved, and may shard the contracted dim, with every batch
+    row on every data rank.  Plain tensors as they are."""
+    from torch.distributed.tensor import Replicate
+
+    def one(w):
+        if not regions.is_dtensor(w):
+            return w
+        names = w.device_mesh.mesh_dim_names
+        return regions.to(w, [Replicate() if names[d] in ("pod", "data")
+                              else p for d, p in enumerate(w.placements)])
+
+    if isinstance(tree, dict):
+        return {k: _fsdp(v) for k, v in tree.items()}
+    return one(tree)
+
+
+def _heads(t, n: int):
+    """(..., n * d) -> (..., n, d); a DTensor's last dim is gathered first
+    where its axes do not divide the n heads (Gemma's 4 heads over 16)."""
+    if regions.is_dtensor(t):
+        t = regions.to(t, regions.divisible(t, (t.ndim - 1,), n))
+    return t.reshape(*t.shape[:-1], n, t.shape[-1] // n)
+
+
+def _unheads(t):
+    """(..., n, d) -> (..., n * d); a DTensor's head dim is gathered first
+    where its axes do not divide the n heads."""
+    if regions.is_dtensor(t):
+        t = regions.to(t, regions.divisible(
+            t, (t.ndim - 2, t.ndim - 1), t.shape[-2]))
+    return t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
+
+
 def _logits(params, x):
     """(..., D) final hidden -> (..., V) float32 logits (tied embeddings)."""
-    return x.float() @ params["embed"].float().T
+    return x.float() @ _fsdp(params["embed"]).float().T
 
 
 # ---------------------------------------------------------------------------
@@ -199,14 +257,17 @@ def _gqa_attention(cfg: LMConfig, lp, x, window: int, positions):
     """x (B, S, D) -> (attention output (B, S, D), (k, v) (B, Hkv, S, Dh))."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ lp["wq"]).reshape(b, s, h, dh).transpose(1, 2)
-    k = (x @ lp["wk"]).reshape(b, s, hkv, dh).transpose(1, 2)
-    v = (x @ lp["wv"]).reshape(b, s, hkv, dh).transpose(1, 2).contiguous()
+    q = constrain(_heads(x @ lp["wq"], h).transpose(1, 2),
+                  "batch", "model", None, None)
+    k = constrain(_heads(x @ lp["wk"], hkv).transpose(1, 2),
+                  "batch", None, None, None)
+    v = constrain(_heads(x @ lp["wv"], hkv).transpose(1, 2),
+                  "batch", None, None, None).contiguous()
     q = apply_rope(q, positions[:, None], cfg.rope_theta)
     k = apply_rope(k, positions[:, None], cfg.rope_theta)
     o = flash.flash_attention(q, k, v, causal=True, window=window)
-    o = o.transpose(1, 2).reshape(b, s, h * dh)
-    return o @ lp["wo"], (k, v)
+    o = constrain(_unheads(o.transpose(1, 2)), "batch", None, "model")
+    return constrain(o @ lp["wo"], *_res_spec(cfg)), (k, v)
 
 
 def _mla_attention(cfg: LMConfig, lp, x, window: int, positions):
@@ -216,67 +277,90 @@ def _mla_attention(cfg: LMConfig, lp, x, window: int, positions):
     b, s, _ = x.shape
     h, r = cfg.n_heads, cfg.kv_lora_rank
     nope, rope, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    q = (x @ lp["wq"]).reshape(b, s, h, nope + rope)
+    q = _heads(x @ lp["wq"], h)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     ckv_full = x @ lp["w_dkv"]
     ckv, k_rope = ckv_full[..., :r], ckv_full[..., r:]
-    kv = (ckv @ lp["w_ukv"]).reshape(b, s, h, nope + dv)
+    kv = _heads(ckv @ lp["w_ukv"], h)
     k_nope, v = kv[..., :nope], kv[..., nope:]
     q_rope = apply_rope(q_rope.transpose(1, 2), positions[:, None],
                         cfg.rope_theta)
     k_rope = apply_rope(k_rope[:, None], positions[:, None], cfg.rope_theta)
-    qh = torch.cat([q_nope.transpose(1, 2), q_rope], -1)
-    kh = torch.cat([k_nope.transpose(1, 2), k_rope.expand(b, h, s, rope)],
-                   -1)
-    vh = v.transpose(1, 2).contiguous()
+    qh = constrain(torch.cat([q_nope.transpose(1, 2), q_rope], -1),
+                   "batch", "model", None, None)
+    kh = constrain(torch.cat([k_nope.transpose(1, 2),
+                              k_rope.expand(b, h, s, rope)], -1),
+                   "batch", "model", None, None)
+    vh = constrain(v.transpose(1, 2), "batch", "model", None, None) \
+        .contiguous()
     o = flash.flash_attention(qh, kh, vh, causal=True, window=window)
-    o = o.transpose(1, 2).reshape(b, s, h * dv)
-    return o @ lp["wo"], (ckv, k_rope[:, 0])
+    o = constrain(_unheads(o.transpose(1, 2)), "batch", None, "model")
+    return constrain(o @ lp["wo"], *_res_spec(cfg)), (ckv, k_rope[:, 0])
 
 
 def _ffn(cfg: LMConfig, lp, h, groups: int = 0):
     """The FFN of one layer on h (T, D) or (B, S, D): (output, MoE aux)."""
-    if not cfg.moe:
-        return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), 0.0
+    ffn_spec, res_spec = (("batch", None, "model"), _res_spec(cfg)) \
+        if h.dim() == 3 else (("batch", "model"), ("batch", None))
+    if not cfg.moe:   # swiglu, with the reference's constrain sites
+        y = constrain(h @ lp["w_gate"], *ffn_spec)
+        u = constrain(h @ lp["w_up"], *ffn_spec)
+        return constrain(F.silu(y) * u @ lp["w_down"], *res_spec), 0.0
     y, aux = moe_lib.moe_apply(lp["moe"], h.reshape(-1, h.shape[-1]),
                                top_k=cfg.top_k,
                                capacity_factor=cfg.capacity_factor,
                                groups=groups)
-    return y.reshape(h.shape), aux
+    if regions.is_dtensor(y):   # tokens back to (B, S): shard as B can
+        y = regions.to(y, regions.divisible(y, (0,), h.shape[0]))
+    return constrain(y.reshape(h.shape), *res_spec), aux
 
 
 def _block(cfg: LMConfig, lp, x, window: int, positions):
     """One layer: (x out, MoE aux, the attention's cache entries)."""
     attention = _mla_attention if cfg.attn_kind == "mla" else _gqa_attention
+    lp = _fsdp(lp)
+    # the sequence-parallel layer input gathered once, before the norm (the
+    # reference's grad_cast site: DTensor has no product of a sequence-
+    # sharded input)
+    x = constrain(x, "batch", None, None)
     o, kv = attention(cfg, lp, rmsnorm(x, lp["ln1"]), window, positions)
     x = x + o
     y, a = _ffn(cfg, lp, rmsnorm(x, lp["ln2"]), cfg.moe_groups)
     return x + y, a, kv
 
 
-def _trunk(cfg: LMConfig, params, tokens, cache=None):
+def _trunk(cfg: LMConfig, params, tokens, cache=None, kv_out=None):
     """Embed and run every layer over the whole sequence; layer i's cache
     entries (GQA: k, v; MLA: ckv, krope) go to ``cache[...][i]`` when a
-    cache is given.  Returns the last hidden states (B, S, D), before the
-    final norm, and the sum of the layers' MoE aux losses.  With
-    ``cfg.remat``, no cache and gradients on, each layer is checkpointed:
-    only its input is kept, and the backward pass runs it again."""
+    cache is given, or are appended to the lists of ``kv_out`` (a sharded
+    prefill: DTensors are not written into in place).  Returns the last
+    hidden states (B, S, D), before the final norm, and the sum of the
+    layers' MoE aux losses.  With ``cfg.remat``, no cache and gradients
+    on, each layer is checkpointed: only its input is kept, and the
+    backward pass runs it again."""
     b, s = tokens.shape
-    x = embedding(params["embed"], tokens)
+    x = constrain(embedding(params["embed"], tokens), *_res_spec(cfg))
     positions = torch.arange(s, device=x.device).expand(b, s)
     names = ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
-    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    serving = cache is not None or kv_out is not None
+    remat = cfg.remat and not serving and torch.is_grad_enabled()
     aux = 0.0
     for i, window in enumerate(cfg.windows()):
         lp = _layer(params, i)
+        if not serving:
+            # Megatron-style sequence parallelism for the saved layer input
+            # (the reference's scan carry)
+            x = constrain(x, "batch", "model", None)
         if remat:
             x, a, _ = checkpoint(_block, cfg, lp, x, window, positions,
                                  use_reentrant=False, preserve_rng_state=False)
         else:
             x, a, kv = _block(cfg, lp, x, window, positions)
-            if cache is not None:
-                for name, t in zip(names, kv):
+            for name, t in zip(names, kv):
+                if cache is not None:
                     cache[name][i, ..., :s, :] = t
+                elif kv_out is not None:
+                    kv_out[name].append(t)
         aux = aux + a
     return x, aux
 
@@ -285,18 +369,91 @@ def hidden_states(cfg: LMConfig, params, tokens):
     """Transformer trunk -> (final hidden (B, S, D) after the final norm,
     aux float32 scalar)."""
     x, aux = _trunk(cfg, params, tokens)
-    return rmsnorm(x, params["final_ln"]), torch.as_tensor(
-        aux, dtype=torch.float32, device=x.device)
+    if not isinstance(aux, torch.Tensor):   # no MoE layer
+        aux = torch.zeros((), device=x.device)
+    return rmsnorm(x, params["final_ln"]), aux
 
 
 def _chunk_ce(xs, labels, embed_f):
     """(sum of the chunk's token losses, its count of labelled tokens): the
     (B, C, V) float32 logits are formed here and nowhere else."""
-    logits = xs.float() @ embed_f.T
+    logits = constrain(xs.float() @ embed_f.T, "batch", None, "model")
+    if regions.is_dtensor(logits):
+        return _sharded_ce(logits, labels)
+    return _ce_sums(logits, labels)
+
+
+def _ce_sums(logits, labels):
+    """The chunk's (loss sum, count) from its logits (B, C, V)."""
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels != -1).float()
     return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Each rank's share of a chunk's cross entropy over its vocab block
+    [v0, v0 + Vl) of the logits (B, C, Vl): the row max and the sum of
+    exp all-reduced over the vocab mesh dims ``dims``, the gold logit
+    summed there (it lies in one block).  The gradient is softmax minus
+    one-hot on each rank's block, with no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, v0: int, mesh, dims):
+        vl = logits.shape[-1]
+        m = logits.amax(dim=-1) if vl else torch.full(
+            logits.shape[:-1], float("-inf"), device=logits.device)
+        m = regions.all_reduce(m, "max", mesh, dims)
+        z = regions.all_reduce(torch.exp(logits - m[..., None]).sum(-1),
+                               "sum", mesh, dims)
+        logz = m + torch.log(z)
+        lab = labels.clamp(min=0).long() - v0
+        hit = (lab >= 0) & (lab < vl)
+        gold = torch.where(hit, logits.gather(
+            -1, lab.clamp(0, max(vl - 1, 0))[..., None])[..., 0]
+            if vl else 0.0, 0.0)
+        gold = regions.all_reduce(gold, "sum", mesh, dims)
+        mask = (labels != -1).float()
+        ctx.save_for_backward(logits, logz, lab, hit, mask)
+        return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+    @staticmethod
+    def backward(ctx, g_nll, g_cnt):
+        logits, logz, lab, hit, mask = ctx.saved_tensors
+        onehot = (lab[..., None] == torch.arange(
+            logits.shape[-1], device=logits.device)) & hit[..., None]
+        p = torch.exp(logits - logz[..., None])
+        return ((p - onehot.float()) * (g_nll * mask)[..., None],
+                None, None, None, None)
+
+
+def _sharded_ce(logits, labels):
+    """:func:`_chunk_ce`'s sums on a DTensor logits block (the
+    ``vocab_parallel_ce`` region): batch rows sharded as the logits' are,
+    the vocab sharded where it is; the sums are each batch shard's
+    (``Partial`` over the batch axes).  Where no axis shards the vocab
+    (a mesh of one device), each rank runs the one-device sums."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = logits.device_mesh
+    l_pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+            for p in logits.placements]
+    b_pl = [p if p == Shard(0) else Replicate() for p in l_pl]
+    dims = [d for d, p in enumerate(l_pl) if p == Shard(2)]
+    logits = regions.to(logits, l_pl)
+    labels = regions.to(labels, b_pl) if regions.is_dtensor(labels) else \
+        regions.replicated(labels, mesh, b_pl)
+    v = logits.shape[-1]
+
+    def local(ll, lb):
+        if not dims:
+            return _ce_sums(ll, lb)
+        v0, _ = regions.shard_range(mesh, l_pl, 2, v)
+        return _VocabParallelCE.apply(ll, lb, v0, mesh, dims)
+
+    out = [Partial() if p == Shard(0) else Replicate() for p in l_pl]
+    return regions.run("vocab_parallel_ce", local, mesh, (logits, labels),
+                       (l_pl, b_pl), (out, out), (l_pl, None), ((), ()))
 
 
 def loss_fn(cfg: LMConfig, params, batch, loss_chunk: int = 512):
@@ -311,7 +468,7 @@ def loss_fn(cfg: LMConfig, params, batch, loss_chunk: int = 512):
     if s % c:
         raise ValueError(f"sequence {s} is not a multiple of the CE chunk "
                          f"{c}")
-    embed_f = params["embed"].float()
+    embed_f = _fsdp(params["embed"]).float()
     nll = torch.zeros((), device=x.device)
     cnt = torch.zeros((), device=x.device)
     for j in range(s // c):
@@ -340,8 +497,20 @@ def prefill(cfg: LMConfig, params, tokens, max_len: int | None = None):
     S) positions per layer.
     """
     b, s = tokens.shape
-    cache = init_cache(cfg, b, max_len or s, device=tokens.device)
-    x, _ = _trunk(cfg, params, tokens, cache)
+    max_len = max_len or s
+    if regions.is_dtensor(params["embed"]):
+        names = ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
+        kv = {n: [] for n in names}
+        x, _ = _trunk(cfg, params, tokens, kv_out=kv)
+        cache = {}
+        for name in names:
+            t = torch.stack(kv[name])
+            pad = max_len - s
+            cache[name] = torch.cat([t, t.new_zeros(
+                (*t.shape[:-2], pad, t.shape[-1]))], -2) if pad else t
+    else:
+        cache = init_cache(cfg, b, max_len, device=tokens.device)
+        x, _ = _trunk(cfg, params, tokens, cache)
     cache["len"] = s
     return _logits(params, rmsnorm(x[:, -1], params["final_ln"])), cache
 
@@ -370,21 +539,48 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None):
     }
 
 
+def _write_position(c, new, pos: int, dim: int) -> None:
+    """DTensor cache ``c`` at position ``pos`` of its sequence axis
+    ``dim`` set to ``new`` in place (the ``cache_write`` region): the rank
+    whose block of the axis holds ``pos`` writes it."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = c.device_mesh
+    n_pl = [Replicate() if not isinstance(p, Shard) or p.dim == dim else
+            Shard(p.dim - (p.dim > dim)) for p in c.placements]
+    n = c.shape[dim]
+
+    def local(cl, nl):
+        s0, s1 = regions.shard_range(mesh, c.placements, dim, n)
+        if s0 <= pos < s1:
+            cl.select(dim, pos - s0).copy_(nl)
+        return cl
+
+    new = regions.to(new, n_pl) if regions.is_dtensor(new) else \
+        regions.replicated(new, mesh, n_pl)
+    regions.run("cache_write", local, mesh, (c, new),
+                (c.placements, n_pl), c.placements, None, c.shape)
+
+
 def _gqa_decode_layer(cfg: LMConfig, lp, h, kc, vc, pos: int, window: int):
     """One layer's attention for one new token at position ``pos``; writes
     its k, v into ``kc``, ``vc`` (B, Hkv, S, Dh) in place."""
     b = h.shape[0]
     hds, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (h @ lp["wq"]).reshape(b, hds, 1, dh)
-    k = (h @ lp["wk"]).reshape(b, hkv, 1, dh)
-    v = (h @ lp["wv"]).reshape(b, hkv, 1, dh)
+    q = _heads(h @ lp["wq"], hds).reshape(b, hds, 1, dh)
+    k = _heads(h @ lp["wk"], hkv).reshape(b, hkv, 1, dh)
+    v = _heads(h @ lp["wv"], hkv).reshape(b, hkv, 1, dh)
     posb = torch.full((b, 1), pos, device=h.device)
     q = apply_rope(q, posb[:, None], cfg.rope_theta)
     k = apply_rope(k, posb[:, None], cfg.rope_theta)
-    kc[:, :, pos] = k[:, :, 0]
-    vc[:, :, pos] = v[:, :, 0]
+    if regions.is_dtensor(kc):
+        _write_position(kc, k[:, :, 0], pos, 2)
+        _write_position(vc, v[:, :, 0], pos, 2)
+    else:
+        kc[:, :, pos] = k[:, :, 0]
+        vc[:, :, pos] = v[:, :, 0]
     o = attn.decode_attention(q, kc, vc, pos + 1, window=window)
-    return o.reshape(b, hds * dh) @ lp["wo"]
+    return _unheads(o[:, :, 0]) @ lp["wo"]
 
 
 def _mla_decode_layer(cfg: LMConfig, lp, h, ckv_c, krope_c, pos: int):
@@ -400,7 +596,7 @@ def _mla_decode_layer(cfg: LMConfig, lp, h, ckv_c, krope_c, pos: int):
     b = h.shape[0]
     hds, r = cfg.n_heads, cfg.kv_lora_rank
     nope, rope, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    q = (h @ lp["wq"]).reshape(b, hds, nope + rope)
+    q = _heads(h @ lp["wq"], hds)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     posb = torch.full((b, 1), pos, device=h.device)
     q_rope = apply_rope(q_rope[:, :, None], posb[:, None],
@@ -408,9 +604,13 @@ def _mla_decode_layer(cfg: LMConfig, lp, h, ckv_c, krope_c, pos: int):
     new = h @ lp["w_dkv"]
     krope_new = apply_rope(new[:, None, None, r:], posb[:, None],
                            cfg.rope_theta)[:, 0, 0]
-    ckv_c[:, pos] = new[:, :r]
-    krope_c[:, pos] = krope_new
-    w_ukv = lp["w_ukv"].reshape(r, hds, nope + dv)
+    if regions.is_dtensor(ckv_c):
+        _write_position(ckv_c, new[:, :r], pos, 1)
+        _write_position(krope_c, krope_new, pos, 1)
+    else:
+        ckv_c[:, pos] = new[:, :r]
+        krope_c[:, pos] = krope_new
+    w_ukv = _heads(lp["w_ukv"], hds)
     w_uk, w_uv = w_ukv[..., :nope], w_ukv[..., nope:]
     q_abs = torch.einsum("bhn,rhn->bhr", q_nope.float(), w_uk.float())
     scale = 1.0 / ((nope + rope) ** 0.5)
@@ -425,7 +625,7 @@ def _mla_decode_layer(cfg: LMConfig, lp, h, ckv_c, krope_c, pos: int):
     o_c = torch.einsum("bhs,bsr->bhr", p.to(ckv_c.dtype).float(), ckv)
     o = torch.einsum("bhr,rhv->bhv", o_c.to(w_uv.dtype).float(),
                      w_uv.float())
-    return o.reshape(b, hds * dv).to(h.dtype) @ lp["wo"]
+    return _unheads(o).to(h.dtype) @ lp["wo"]
 
 
 def decode_step(cfg: LMConfig, params, cache, tokens):
@@ -443,7 +643,7 @@ def decode_step(cfg: LMConfig, params, cache, tokens):
                          "used")
     x = embedding(params["embed"], tokens)
     for i, window in enumerate(cfg.windows()):
-        lp = _layer(params, i)
+        lp = _fsdp(_layer(params, i))
         h = rmsnorm(x, lp["ln1"])
         if mla:
             o = _mla_decode_layer(cfg, lp, h, cache["ckv"][i],

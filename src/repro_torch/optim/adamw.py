@@ -8,6 +8,12 @@ regardless of the parameters' dtype; the step count is an int32 tensor and
 ``b ** step`` is taken in float32, as the reference does.  Every scalar
 stays a tensor on the parameters' device: an update reads nothing back to
 the host.
+
+Parameters, gradients and state may be DTensors (a sharded step): every
+op is elementwise or a sum, the constants are Python numbers (no plain
+tensor meets a DTensor), and the global norm is the whole tree's on every
+rank (each leaf's sum of squares is a ``Partial`` over its shards, all
+reduced before the square root).
 """
 from __future__ import annotations
 
@@ -49,14 +55,19 @@ def schedule_lr(cfg: AdamWConfig, step):
 
 
 def init_state(params):
+    """Zero moments laid out as the parameters (DTensors alike) and a
+    step count of 0 (replicated on a DTensor's mesh)."""
+    from repro_torch.dist import regions
+
     first = tree.leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    if regions.is_dtensor(first):
+        step = regions.replicated(step, first.device_mesh)
     return {"mu": tree.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), params),
+                lambda p: torch.zeros_like(p, dtype=torch.float32), params),
             "nu": tree.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), params),
-            "step": torch.zeros((), dtype=torch.int32, device=first.device)}
+                lambda p: torch.zeros_like(p, dtype=torch.float32), params),
+            "step": step}
 
 
 def global_norm(grads):
@@ -71,10 +82,8 @@ def apply_updates(cfg: AdamWConfig, params, grads, state):
     gn = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
     lr = schedule_lr(cfg, step)
-    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, device=step.device),
-                          step.float())
-    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, device=step.device),
-                          step.float())
+    b1c = 1.0 - torch.pow(cfg.b1, step.float())
+    b2c = 1.0 - torch.pow(cfg.b2, step.float())
 
     def upd(p, g, mu, nu):
         g = g.float() * scale

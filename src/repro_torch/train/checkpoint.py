@@ -10,6 +10,13 @@ it (numpy has no bfloat16: its 2-byte raw data, ``|V2``, with the dtype
 ``bfloat16`` in the manifest) and restored from its bits by that dtype.  The keys are the reference's, so a checkpoint it
 wrote restores into the port's tree of the same structure, and the other
 way round.  One process writes (``process_count`` is 1).
+
+A sharded tree (DTensors, ``launch/steps.sharded_step``) is saved whole:
+every rank gathers each DTensor (a collective, so every rank calls
+:func:`save`), rank 0 writes, and the others wait for it.  :func:`restore`
+lays each leaf out as its target's: a DTensor target takes its mesh and
+placements (the reference's ``restore(..., shardings=)``), so a checkpoint
+written from one mesh restores onto another, or onto one device.
 """
 from __future__ import annotations
 
@@ -24,8 +31,17 @@ import torch
 from repro_torch import tree
 
 
+def _is_dtensor(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor)
+
+
 def _numpy(leaf: torch.Tensor) -> np.ndarray:
-    """A leaf as numpy; bfloat16 as its raw 2-byte data (``|V2``)."""
+    """A leaf as numpy (a DTensor gathered whole); bfloat16 as its raw
+    2-byte data (``|V2``)."""
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     leaf = leaf.detach().cpu()
     if leaf.dtype == torch.bfloat16:
         return leaf.view(torch.int16).numpy().view("V2")
@@ -45,14 +61,39 @@ def _flatten(t) -> dict[str, np.ndarray]:
             for path, leaf in tree.flatten_with_path(t)}
 
 
+def _writer() -> tuple[bool, bool]:
+    """(whether this process writes, whether it waits for the writer) for
+    a sharded tree: rank 0 writes, every rank waits."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return True, False
+    return dist.get_rank() == 0, dist.get_world_size() > 1
+
+
 def save(ckpt_dir: str, step: int, t, extra: dict | None = None) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write ``t`` (a tree of tensors, DTensors gathered) atomically as
+    ``step_<step>`` under ``ckpt_dir``; returns its path."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    arrays = _flatten(t)
+    writes, waits = (_writer() if any(_is_dtensor(x) for x in tree.leaves(t))
+                     else (True, False))
+    if writes:
+        _write(ckpt_dir, final, step, arrays, extra)
+    if waits:
+        import torch.distributed as dist
+
+        dist.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, final: str, step: int, arrays: dict,
+           extra: dict | None) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + f".tmp-{os.getpid()}"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    arrays = _flatten(t)
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     manifest = {
         "step": step,
@@ -69,7 +110,6 @@ def save(ckpt_dir: str, step: int, t, extra: dict | None = None) -> str:
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)
-    return final
 
 
 def latest_step(ckpt_dir: str) -> int | None:
@@ -83,7 +123,8 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 def restore(ckpt_dir: str, step: int, target):
     """Rebuild a ``target``-shaped tree from disk: each leaf takes the
-    saved array of its key path, with the target leaf's dtype and device."""
+    saved array of its key path, with the target leaf's dtype and device
+    (a DTensor target's mesh and placements: each rank keeps its block)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     dtypes = {k: v["dtype"] for k, v in
               read_manifest(ckpt_dir, step)["arrays"].items()}
@@ -95,8 +136,14 @@ def restore(ckpt_dir: str, step: int, target):
             if list(arr.shape) != list(leaf.shape):
                 raise ValueError(f"{key}: saved shape {arr.shape}, target "
                                  f"{tuple(leaf.shape)}")
-            new_leaves.append(_tensor(arr, dtypes[key]).to(
-                device=leaf.device, dtype=leaf.dtype))
+            full = _tensor(arr, dtypes[key]).to(device=leaf.device,
+                                                dtype=leaf.dtype)
+            if _is_dtensor(leaf):
+                from torch.distributed.tensor import distribute_tensor
+
+                full = distribute_tensor(full, leaf.device_mesh,
+                                         leaf.placements, src_data_rank=None)
+            new_leaves.append(full)
     return tree.unflatten(target, new_leaves)
 
 

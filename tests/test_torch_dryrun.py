@@ -34,6 +34,7 @@ from repro_torch.launch.mesh import (  # noqa: E402
     fake_world, make_production_mesh)
 from repro_torch.launch.op_cost import analyze_step  # noqa: E402
 
+LM = {a for a in ARCH_IDS if get_arch(a).family == "lm"}
 MESHES = {"pod16x16": ((16, 16), ("data", "model")),
           "pod2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 # per-device argument bytes of the reference's cells, read from its
@@ -193,7 +194,11 @@ def test_constrain_redistributes_a_dtensor():
 
 def test_dryrun_cli_at_smoke_size(tmp_path):
     """Both production meshes and the card: 36 ok and 4 skipped records a
-    mesh, each with the reference's keys and no XLA-only one, exit 0."""
+    mesh, each with the reference's keys and no XLA-only one, exit 0; an
+    LM cell on a mesh runs sharded (a device's cost, peak and
+    collectives, the whole step's cost under cost_step) unless it is a
+    train cell whose smoke batch its data-parallel devices do not
+    divide."""
     out = str(tmp_path)
     assert dryrun.main(["--smoke", "--mesh", "both", "--out", out]) == 0
     assert dryrun.main(["--smoke", "--mesh", "card", "--out", out]) == 0
@@ -205,11 +210,20 @@ def test_dryrun_cli_at_smoke_size(tmp_path):
         status = [r["status"] for r in recs]
         assert (status.count("ok"), status.count("skipped")) == (36, 4)
         for r in recs:
-            assert not {"compile_s", "temp_bytes", "alias_bytes",
-                        "collectives"} & (set(r) | set(r.get("memory", {})))
+            assert not {"compile_s", "temp_bytes", "alias_bytes"} & (
+                set(r) | set(r.get("memory", {})))
             if r["status"] == "skipped":
                 assert r["reason"]
                 continue
+            sharded = mesh_name != "card" and r["arch"] in LM and \
+                "sharded" not in r
+            assert ("collectives" in r) == sharded == ("cost_step" in r)
+            assert r["cost"]["scope"] == ("device" if sharded else "step")
+            if sharded:
+                assert r["collectives"]["total_count"] > 0
+                assert r["memory"]["peak_bytes"] > 0
+            elif mesh_name != "card" and r["arch"] in LM:
+                assert r["meta"]["kind"] == "train"
             assert r["cost"]["flops"] > 0 and r["cost"]["bytes"] > 0
             assert r["cost"]["devices"] == dryrun.devices(mesh_name)
             if r["meta"]["kind"] == "train" and r["arch"] in (

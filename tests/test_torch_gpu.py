@@ -8,7 +8,9 @@ segment_reduce kernel, each GNN's train step against the CPU's, and the
 partitioned MeshGraphNet step at world size 1 against the dense one; LM
 and FM training: the backward kernels of flash_attention and
 fm_interaction against their plain versions, and each LM's and FM's smoke
-train step against the CPU's.
+train step against the CPU's; the LM smoke cells through
+``steps.sharded_step`` on a one-rank NCCL mesh, bit for bit the unsharded
+cells'; a flash_attention call with no query head, no launch.
 
 Wrapper contracts: every wrapper takes strided views (one launch per
 call), segment_reduce takes bfloat16 and float16 (float32 sums, one
@@ -201,27 +203,35 @@ def test_flash_attention_matches_plain(cuda, shape, d, dtype):
     assert bool((got[dead] == 0).all())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.float16])
 @pytest.mark.parametrize("d_dv", tp.FLASH_DV)
 @pytest.mark.parametrize("shape", tp.FLASH_SHAPES)
-def test_flash_attention_value_width_matches_plain(cuda, shape, d_dv, dtype):
+def test_flash_attention_value_width_matches_plain(cuda, shape, d_dv):
+    """Each dtype (float32, bfloat16, float16) in turn; then the shape with
+    no query head (a sharded call's empty shard): an empty output, no
+    launch."""
     h, hkv, sq, skv, causal, window, off = shape
     d, dv = d_dv
-    q, k, v = tp.qkv(2, h, hkv, sq, skv, d, dtype, seed=sq + skv + dv,
-                     device=cuda, dv=dv)
-    want = flash_attention_ref(q, k, v, causal, window, off)
-    before = kernels.launch_counts["flash_attention"]
-    got = fa_ops.flash_attention(q, k, v, causal, window, off)
-    again = fa_ops.flash_attention(q, k, v, causal, window, off)
-    torch.cuda.synchronize()
-    assert kernels.launch_counts["flash_attention"] == before + 2
-    assert got.shape == (2, h, sq, dv)
-    assert got.dtype == dtype and torch.equal(got, again)
-    assert tp.flash_error_ratio(got, want) <= 1
-    # rows that see no key are exactly 0, as in the Pallas kernel
-    dead = want.float().abs().amax(dim=-1) == 0
-    assert bool((got[dead] == 0).all())
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        q, k, v = tp.qkv(2, h, hkv, sq, skv, d, dtype, seed=sq + skv + dv,
+                         device=cuda, dv=dv)
+        want = flash_attention_ref(q, k, v, causal, window, off)
+        before = kernels.launch_counts["flash_attention"]
+        got = fa_ops.flash_attention(q, k, v, causal, window, off)
+        again = fa_ops.flash_attention(q, k, v, causal, window, off)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["flash_attention"] == before + 2
+        assert got.shape == (2, h, sq, dv)
+        assert got.dtype == dtype and torch.equal(got, again), dtype
+        assert tp.flash_error_ratio(got, want) <= 1, dtype
+        # rows that see no key are exactly 0, as in the Pallas kernel
+        dead = want.float().abs().amax(dim=-1) == 0
+        assert bool((got[dead] == 0).all())
+        before = dict(kernels.launch_counts)
+        empty = fa_ops.flash_attention(q[:, :0], k[:, :0], v[:, :0], causal,
+                                       window, off)
+        torch.cuda.synchronize()
+        assert empty.shape == (2, 0, sq, dv) and \
+            dict(kernels.launch_counts) == before
 
 
 def test_fm_serving_on_card_matches_cpu(cuda):
@@ -699,3 +709,49 @@ def _lm_or_fm_training_on_card(cuda, arch_id):
                 for _ in range(2))
     assert all(torch.equal(x, y) for x, y in
                zip(tree.leaves(one[:2]), tree.leaves(two[:2])))
+
+
+def test_sharded_step_one_rank_on_card_is_bitwise(cuda):
+    """The smoke configs of gemma3-1b and deepseek-v2-lite-16b through
+    ``steps.sharded_step`` on a one-rank NCCL mesh: a train step, a
+    prefill and a decode step on its cache, bit for bit the unsharded
+    cells' on the card, with the same kernel launches."""
+    from repro_torch import tree
+    from repro_torch.launch import gnn_partitioned as gp
+    from repro_torch.launch import lm_sharded, steps
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import compat_make_mesh
+
+    def run(arch_id, mesh):
+        out, cache, launches = [], None, []
+        for shape in ("train_4k", "prefill_32k", "decode_32k"):
+            cell = lm_sharded.lm_cell(arch_id, shape, cuda, mesh)
+            args, step = (cell.args, cell.step_fn) if mesh is None else (
+                steps.sharded_args(cell, mesh),
+                steps.sharded_step(cell, mesh))
+            if shape == "decode_32k":
+                args = (args[0], cache, args[2])
+            kernels.reset_launch_counts()
+            res = step(*args)
+            torch.cuda.synchronize()
+            launches.append(dict(kernels.launch_counts))
+            if shape == "prefill_32k":
+                cache = res[1]
+            out.append(tree.tree_map(lambda x: x.clone() if isinstance(
+                x, torch.Tensor) else x, res if mesh is None else
+                sh.full(res)))
+        return out, launches
+
+    gp.init_rank(0, 1, gp.free_port(), cuda)
+    try:
+        mesh = compat_make_mesh((1, 1), ("data", "model"), "cuda")
+        for arch_id in ("gemma3-1b", "deepseek-v2-lite-16b"):
+            want, want_launches = run(arch_id, None)
+            got, got_launches = run(arch_id, mesh)
+            assert got_launches == want_launches, arch_id
+            for g, w in zip(got, want):
+                for a, b in zip(tree.leaves(g), tree.leaves(w)):
+                    assert (torch.equal(a, b) if isinstance(b, torch.Tensor)
+                            else a == b), arch_id
+    finally:
+        torch.distributed.destroy_process_group()
