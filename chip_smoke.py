@@ -55,7 +55,7 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       kept on the host during that run; the sum of launches x time); and a
       record at F = 128, M = 2^20 (runs of about 8 rows) against plain and
       index_add_.
-  (h) power-law graph: rmat scale 20, edge factor 8, k=64, T=4, sorted
+  (h) power-law graph: rmat scale 19, edge factor 8, k=64, T=4, sorted
       against dense: equal parts; the time and peak memory of each, and
       the padded degree and state bytes that ell would need there.
   (i) fm_interaction against plain: B in {1, 255, 256, 257, 512, 262144},
@@ -89,9 +89,9 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       ``F.scaled_dot_product_attention`` timed at a global and a local
       layer's shapes (with the kernel/SDPA time ratio), and the smoke
       config's logits on the card against the CPU within 2e-4.
-  (m) the fleet at full width: 24 graphs (8 grid2d of sides 241..255, 8
-      small_world of 60000 + 365 i vertices, i even, 4 grid3d of sides
-      33..39, 4 random_geometric of 32768 + 1024 i vertices, i even), k=64,
+  (m) the fleet at full width: 12 graphs (4 grid2d of sides 241..253, 4
+      small_world of 60000 + 365 i vertices, 2 grid3d of sides 33, 37, 2
+      random_geometric of 32768 + 1024 i vertices, i a multiple of 4), k=64,
       T=4, ell, through
       ``partition_fleet`` and through a loop of standalone ``partition()``
       calls: every member equal bit for bit, balanced, cuts recomputed on
@@ -110,8 +110,8 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       250x250, small_world 245^2 and 250^2, grid3d 40^3, random_geometric
       200^2); the bucket map, with one bucket holding two true sizes; the
       warmup grid (every lane composition of each rung's families), a
-      burst of 48 requests at 2000 req/s (throughput, occupancy), a Poisson
-      replay of 12 at half that throughput (p50/p95 latency, new allocator
+      burst of 32 requests at 2000 req/s (throughput, occupancy), a Poisson
+      replay of 6 at half that throughput (p50/p95 latency, new allocator
       segments); no new signature after warmup, jet_gain launched once per
       batched loop iteration, every response equal bit for bit to its
       standalone partition() on the card; peak memory, filler lanes.
@@ -251,6 +251,16 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       its processes on an all-gather of CUDA tensors: the step is not run
       there, and the four-rank check is the CPU tests'.)  (z3) a zero-head flash_attention call on the card
       returns an empty output with no launch.
+  (z4) the FM and GNN cells as sharded programs on a one-rank NCCL mesh:
+      FM at its published width (39 fields, D 10, 262,144 rows a field)
+      for two train_batch steps (B = 65,536), serve_bulk (B = 262,144) and
+      retrieval_cand (10^6 candidates), and two MeshGraphNet steps at
+      (r)'s width and size (15 blocks, d 128, mesh_batch(512, 512) in
+      input order): losses, parameters, optimizer state and scores bit
+      for bit the unsharded cells'; fm_interaction, its backward and
+      segment_reduce launched as often as the unsharded run (counts reset
+      before each run); step times against the unsharded ones and peak
+      memory beside the card's name and power limit.
   The script ends by checking that no jax or repro (JAX package) module was
   imported.  ``--phases`` runs a subset, for debugging; such a run prints no
   result line.
@@ -1077,10 +1087,10 @@ def phase_powerlaw(tp):
     from repro_torch.data import graphs as gen
 
     t0 = time.perf_counter()
-    g = gen.rmat(20, edge_factor=8)
+    g = gen.rmat(19, edge_factor=8)
     d_max = int(g.degrees().max())
     n, m = int(g.n), int(g.m)
-    print(f"(h) rmat scale 20, edge factor 8: n={n}, directed edges={m}, "
+    print(f"(h) rmat scale 19, edge factor 8: n={n}, directed edges={m}, "
           f"max degree {d_max} (built in {time.perf_counter() - t0:.1f} s)")
     out = {}
     for backend in ("sorted", "dense"):
@@ -1144,15 +1154,15 @@ def phase_fleet_small(tp):
           f"{time.perf_counter() - t0:.1f} s")
 
 
-# every other graph of the 48 that (m) ran up to PR 18: the script's time
-# limit (PR 19's (z) and a slower host took it to 1169.5 s)
+# every fourth graph of a 48-graph set (sizes in steps of 2), so that the
+# whole script stays inside its time limit on a slow host
 FLEET_JOBS = (
-    [("grid2d", (s, s), {}) for s in range(241, 257, 2)]
+    [("grid2d", (s, s), {}) for s in range(241, 257, 4)]
     + [("small_world", (60000 + 365 * i,), {"seed": i})
-       for i in range(0, 16, 2)]
-    + [("grid3d", (s, s, s), {}) for s in range(33, 41, 2)]
+       for i in range(0, 16, 4)]
+    + [("grid3d", (s, s, s), {}) for s in range(33, 41, 4)]
     + [("random_geometric", (32768 + 1024 * i,), {"seed": i})
-       for i in range(0, 8, 2)])
+       for i in range(0, 8, 4)])
 
 
 def _host_reads(run):
@@ -1174,7 +1184,7 @@ def _host_reads(run):
 
 
 def phase_fleet_full_width(tp, dev):
-    """(m): 24 graphs of a mesh/GNN pipeline's dataset, partitioned as one
+    """(m): 12 graphs of a mesh/GNN pipeline's dataset, partitioned as one
     fleet and one by one; every member equal, bit for bit."""
     import torch
 
@@ -1190,9 +1200,9 @@ def phase_fleet_full_width(tp, dev):
     graphs = [getattr(gen, fn)(*a, **kw) for fn, a, kw in FLEET_JOBS]
     n_all = sum(int(g.n) for g in graphs)
     m_all = sum(int(g.m) for g in graphs)
-    print(f"(m) {len(graphs)} graphs (8 grid2d 241..255, 8 small_world "
-          f"60000+365i, 4 grid3d 33..39, 4 random_geometric 32768+1024i, "
-          f"i even): "
+    print(f"(m) {len(graphs)} graphs (4 grid2d 241..253, 4 small_world "
+          f"60000+365i, 2 grid3d 33, 37, 2 random_geometric 32768+1024i, "
+          f"i a multiple of 4): "
           f"{n_all} vertices, {m_all} directed edges (made in "
           f"{time.perf_counter() - t0:.1f} s)")
     cfg = PartitionConfig(k=64, trials=4, backend="ell")
@@ -1367,7 +1377,7 @@ def phase_serve_full_width(tp):
 
     spec = {"families": [{"graph": f, "size": s, "seed": sd, "weight": w}
                          for f, s, sd, w in SERVE_FAMILIES],
-            "ks": list(SERVE_KS), "count": 48, "rate_rps": 2000.0,
+            "ks": list(SERVE_KS), "count": 32, "rate_rps": 2000.0,
             "trials": 4, "seed": 0}
     t0 = time.perf_counter()
     burst = serve_cli.build_workload(spec)
@@ -1406,7 +1416,7 @@ def phase_serve_full_width(tp):
     occ_burst = dict(server.stats["occupancy_hist"])
     rps = len(rec_burst) / burst_s
     # a Poisson stream at half the burst's throughput, on the same graphs
-    poisson = serve_cli.build_workload(dict(spec, count=12, seed=1,
+    poisson = serve_cli.build_workload(dict(spec, count=6, seed=1,
                                             rate_rps=rps / 2))
     for r in poisson:
         r["graph"] = by_family[r["family"]]
@@ -3826,6 +3836,23 @@ def _full(tree_):
     return sh.full(tree_)
 
 
+def _train_steps(step, args, n: int):
+    """``n`` runs of the train ``step`` from ``args`` (params, opt_state,
+    batch), each on the last one's parameters and state: the step times,
+    the losses and the final (params, opt_state)."""
+    import torch
+
+    times, losses = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        p, o, m = step(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(_full(m["loss"]))
+        args = (p, o, args[2])
+    return times, losses, args[:2]
+
+
 def _sharded_one_rank(dev, v_result) -> dict:
     """(z1) Gemma-3 1B at full width on a one-rank NCCL mesh: two train_4k
     steps at (v)'s batch, a prefill of 4 x 4096 and 8 greedy decode steps
@@ -3875,14 +3902,8 @@ def _sharded_one_rank(dev, v_result) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        times, got_losses = [], []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            p2, o2, m2 = step(*args)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            got_losses.append(_full(m2["loss"]))
-            args = (p2, o2, args[2])
+        times, got_losses, (p2, o2) = _train_steps(step, args, 2)
+        args = (p2, o2, args[2])
         # besides (v)'s step: the unsharded parameters kept for the
         # comparison, and each step's inputs alive beside its outputs
         peak = torch.cuda.max_memory_allocated()
@@ -4072,9 +4093,154 @@ def phase_sharded(tp, dev, v_result=None) -> dict:
     return out
 
 
+def _against_unsharded(tag: str, cell, scell, mesh, n: int,
+                       counted) -> dict:
+    """``n`` train steps of ``cell`` and of ``scell`` (the same cell built
+    with ``mesh``) through ``steps.sharded_step``, the launch counts of
+    each run from zero: losses, parameters and optimizer state bit for
+    bit, the ``counted`` kernels launched as often; step times and the
+    sharded run's peak."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch import steps
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    times, losses, want = _train_steps(cell.step_fn, cell.args, n)
+    plain = {k: kernels.launch_counts.get(k, 0) for k in counted}
+    args = steps.sharded_args(scell, mesh)
+    step = steps.sharded_step(scell, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    s_times, s_losses, got = _train_steps(step, args, n)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: kernels.launch_counts.get(k, 0) for k in counted}
+    if launches != plain or not all(launches.values()):
+        raise AssertionError(f"{tag} launches {launches} != the unsharded "
+                             f"run's {plain}")
+    if not (all(map(_equal, s_losses, losses))
+            and _bitwise(_full(got), want)):
+        raise AssertionError(f"{tag} the sharded steps' losses, parameters "
+                             "or optimizer state differ from the unsharded")
+    print(f"{tag} {n} steps on a one-rank NCCL mesh: losses "
+          f"{[float(x) for x in losses]}, parameters and optimizer state bit "
+          f"for bit the unsharded cell's; launches {launches} (the "
+          f"unsharded run's); steps {', '.join(f'{t:.5f}' for t in s_times)} "
+          f"s against {', '.join(f'{t:.5f}' for t in times)} s unsharded; "
+          f"peak {peak} B")
+    return {"launches": launches, "step_s": s_times, "unsharded_step_s": times,
+            "peak_bytes": peak, "bitwise": True,
+            "losses": [float(x) for x in losses]}
+
+
+def _sharded_serve(tag: str, cell, scell, mesh, counted) -> dict:
+    """One call of the serve (or retrieval) ``cell`` and of ``scell`` on
+    ``mesh``: the scores bit for bit, the ``counted`` kernels launched as
+    often; the two calls' times."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch import steps
+
+    with torch.no_grad():
+        want, launches_want = _counted(cell.step_fn, *cell.args)
+        args = steps.sharded_args(scell, mesh)
+        step = steps.sharded_step(scell, mesh)
+        step(*args)                        # DTensor's caches
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = _full(step(*args))
+        torch.cuda.synchronize()
+        s_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(kernels.launch_counts)
+        ms = _time_ms(lambda: cell.step_fn(*cell.args), 5)
+    pick = {k: launches.get(k, 0) for k in counted}
+    if pick != {k: launches_want.get(k, 0) for k in counted} or \
+            not _equal(got, want):
+        raise AssertionError(f"{tag} scores or launches {launches} differ "
+                             f"from the unsharded call's {launches_want}")
+    print(f"{tag} on a one-rank NCCL mesh: {tuple(got.shape)} scores bit for "
+          f"bit the unsharded call's; launches {pick}; {s_ms:.3f} ms against "
+          f"{ms:.3f} ms unsharded")
+    return {"launches": pick, "ms": s_ms, "unsharded_ms": ms}
+
+
+def phase_sharded_fm_gnn(tp, dev) -> dict:
+    """(z4) FM at its published width (train_batch, serve_bulk,
+    retrieval_cand) and MeshGraphNet at (r)'s size as sharded programs on a
+    one-rank NCCL mesh, each bit for bit its unsharded cell with the
+    kernels launched as often."""
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.launch import gnn_partitioned as gp
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import compat_make_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    gp.init_rank(0, 1, gp.free_port(), dev)
+    try:
+        mesh = compat_make_mesh((1, 1), ("data", "model"), dev.type)
+        fm = get_arch("fm")
+        fm_kernels = ("fm_interaction", "fm_interaction_bwd",
+                      "segment_reduce")
+        cell = steps.build_cell(fm, "train_batch", dev)
+        scell = steps.build_cell(fm, "train_batch", dev, mesh=mesh)
+        out["fm_train"] = _against_unsharded(
+            f"(z4) fm train_batch B={cell.args[2]['ids'].shape[0]}", cell,
+            scell, mesh, 2, fm_kernels)
+        del cell, scell
+        for shape in ("serve_bulk", "retrieval_cand"):
+            cell = steps.build_cell(fm, shape, dev)
+            scell = steps.build_cell(fm, shape, dev, mesh=mesh)
+            out[f"fm_{shape}"] = _sharded_serve(
+                f"(z4) fm {shape}", cell, scell, mesh,
+                ("fm_interaction",) if shape == "serve_bulk" else ())
+            del cell, scell
+        # MeshGraphNet at full width on (r)'s mesh_batch(512, 512)
+        data = synthetic.mesh_batch(512, 512, seed=0, device=dev)
+        graph = data["graph"]
+        n, e = graph.node_feat.shape[0], graph.senders.shape[0]
+        arch = get_arch("meshgraphnet")
+        arch = dataclasses.replace(arch, shapes={"mesh_512": {
+            "kind": "train", "n_nodes": n, "n_edges": e,
+            "d_feat": graph.node_feat.shape[1], "n_graphs": graph.n_graphs}})
+        batch = steps.with_edge_plan({
+            "node_feat": graph.node_feat, "senders": graph.senders,
+            "receivers": graph.receivers, "pos": graph.pos,
+            "graph_id": graph.graph_id, "target": data["target"]},
+            graph.n_graphs)
+        del data, graph
+        cell, scell = (c._replace(args=c.args[:2] + (batch,)) for c in (
+            steps.build_cell(arch, "mesh_512", dev),
+            steps.build_cell(arch, "mesh_512", dev, mesh=mesh)))
+        out["meshgraphnet"] = _against_unsharded(
+            f"(z4) meshgraphnet {arch.config.n_layers} x "
+            f"{arch.config.d_hidden} on mesh_batch(512, 512) (N = {n}, "
+            f"E = {e})", cell, scell, mesh, 2, ("segment_reduce",))
+        want = 2 * gnn_segment_sums("meshgraphnet", arch.config)
+        if out["meshgraphnet"]["launches"]["segment_reduce"] != want:
+            raise AssertionError(f"(z4) segment_reduce launches "
+                                 f"{out['meshgraphnet']['launches']} != "
+                                 f"{want} in two steps")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 PHASES = ("a", "b", "b2", "b3", "c", "d", "n", "p", "e", "g", "h", "m", "o",
           "i", "j", "k", "l", "q", "r", "s", "t", "u", "v", "w",
-          "x", "y", "z")
+          "x", "y", "z", "z4")
 
 
 def main(argv=None) -> int:
@@ -4204,6 +4370,18 @@ def main(argv=None) -> int:
         flash["sharded"] = dict(sharded, z3=z["z3"])
         flash_bwd["sharded"] = sharded
         segment["sharded"] = sharded
+    if "z4" in run:
+        z4 = timed("z4", phase_sharded_fm_gnn, tp, dev)
+        print(f"(z4) on {smi}", flush=True)
+        for e_ in entries:
+            if e_["name"] in ("fm_interaction", "fm_interaction_bwd"):
+                e_["sharded_fm"] = {
+                    k_: z4[k_]["launches"].get(e_["name"])
+                    for k_ in ("fm_train", "fm_serve_bulk")
+                    if e_["name"] in z4[k_]["launches"]}
+        segment["sharded"] = dict(segment.get("sharded", {}), z4={
+            k_: z4[k_]["launches"]["segment_reduce"]
+            for k_ in ("fm_train", "meshgraphnet")})
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if leaked:

@@ -15,12 +15,20 @@ unchanged, so the models stay runnable anywhere.  Given a
 placements: the torch counterpart of ``with_sharding_constraint``.
 
 The active mesh is the innermost :func:`constraint_mesh` scope (a
-``DeviceMesh``).  The LM transformer and the MoE FFN call ``constrain`` at
-the reference's call sites; ``launch/steps.sharded_step`` runs a cell's
-step under its mesh.  One difference from the reference: a dim named
-``"batch"`` that the data-parallel axes do not divide (a smoke batch of 2
-over 16 devices) is replicated, where XLA pads the shards, because DTensor
-cannot form a product over rows sharded unevenly.
+``DeviceMesh``).  The LM transformer, the MoE FFN and the GNNs call
+``constrain`` at the reference's call sites; ``launch/steps.sharded_step``
+runs a cell's step under its mesh.  Two differences from the reference:
+
+* a dim named ``"batch"`` that the data-parallel axes do not divide (a
+  smoke batch of 2 over 16 devices) is replicated, where XLA pads the
+  shards, because DTensor cannot form a product over rows sharded
+  unevenly;
+* ``"all"`` names every axis of the mesh, in its order: the GNNs' node
+  and edge rows (``constrain(h, "all", None)``).  The reference's
+  ``_resolve`` takes it for an axis name that no mesh has, so its GNN
+  activations are replicated at every block, against its own docstring
+  (``models/gnn/meshgraphnet.py:4-6``); the port shards them as that
+  docstring says.
 """
 from __future__ import annotations
 
@@ -70,7 +78,8 @@ def constrain(x, *axes):
         return x
     names = set(mesh.mesh_dim_names)
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    spec = tuple(_resolve(a, names) for a in axes)
+    spec = tuple(_resolve(tuple(mesh.mesh_dim_names) if a == "all" else a,
+                          names) for a in axes)
     spec = tuple(None if a == "batch" and r is not None and
                  n % math.prod(sizes[x] for x in r) else r
                  for a, r, n in zip(axes, spec, x.shape))

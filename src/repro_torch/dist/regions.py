@@ -31,12 +31,17 @@ REGIONS = {
     "flash_attention": "the flash kernel (forward and backward) on each "
                        "rank's batch rows and query heads; GQA kv heads "
                        "sliced or repeated per shard",
+    "fm_interaction": "the fm_interaction kernel (forward and backward) on "
+                      "each rank's batch rows or D columns (a Partial "
+                      "score over D)",
     "segment_reduce": "the segment_reduce kernel on each rank's rows (a "
                       "Partial sum) or segment range (ids shifted)",
     "embedding": "vocab-parallel lookup: each rank's rows, masked; the "
                  "sum over the vocab axes is a Partial",
     "sorted_index": "the stable argsort of each rank's ids (one fixed "
                     "order within a rank)",
+    "per_row": "a row-wise function that DTensor would gather whole (a "
+               "diagonal), on each rank's own rows",
     "rows": "a gather or sum of rows by a rank's own index",
     "vocab_parallel_ce": "cross entropy over a vocab-sharded logits block: "
                          "max and sum of exp all-reduced over the vocab "
@@ -136,6 +141,29 @@ def replicated(x, mesh, placements=None):
     out = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
                              run_check=False)
     return out if placements is None else to(out, placements)
+
+
+def partials_onto_rows(placements, mesh, n: int) -> list:
+    """``placements`` with each ``Partial`` reduced: onto rows
+    (``Shard(0)``) where the shards of dim 0 so far, in mesh order, divide
+    its ``n`` rows evenly, else replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    out, rows = [], 1
+    for d, p in enumerate(placements):
+        if isinstance(p, Partial):
+            p = Shard(0) if n % (rows * mesh.size(d)) == 0 else Replicate()
+        if p == Shard(0):
+            rows *= mesh.size(d)
+        out.append(p)
+    return out
+
+
+def replicated_placements(t) -> tuple:
+    """``Replicate()`` on every dim of DTensor ``t``'s mesh."""
+    from torch.distributed.tensor import Replicate
+
+    return (Replicate(),) * t.device_mesh.ndim
 
 
 def divisible(t, dims, size: int) -> list:

@@ -13,6 +13,8 @@ whose backward is the backward kernel in the same ``.cu`` (its plain
 version ``fm_interaction_bwd_ref`` on the CPU).  Both directions are
 custom ops (``repro_torch::fm_interaction``, ``repro_torch::
 fm_interaction_bwd``, see ``kernels/__init__.py``) with a cost formula each.
+On DTensors (a sharded step) the call runs in the ``fm_interaction``
+region of ``dist/regions.py`` (:func:`_sharded_fm_interaction`).
 """
 from __future__ import annotations
 
@@ -156,7 +158,12 @@ class _FmInteraction(torch.autograd.Function):
 def fm_interaction(emb: torch.Tensor) -> torch.Tensor:
     """emb (B, F, D) float32, bfloat16 or float16 -> (B,) float32
     second-order FM scores.  A CPU tensor goes to the plain version, a CUDA
-    tensor to the kernel."""
+    tensor to the kernel; a DTensor to :func:`_sharded_fm_interaction`,
+    the kernel on each rank's shard."""
+    from repro_torch.dist import regions
+
+    if regions.is_dtensor(emb):
+        return _sharded_fm_interaction(emb)
     if emb.dim() != 3:
         raise ValueError(f"emb must be (B, F, D), got {tuple(emb.shape)}")
     if emb.dtype not in DTYPES:
@@ -171,3 +178,43 @@ def fm_interaction(emb: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled() and emb.requires_grad:
         return _FmInteraction.apply(emb)
     return _forward_op(emb)
+
+
+def _fm_layouts(emb) -> tuple[list, list]:
+    """(emb, output) placements of a sharded call, along each mesh dim:
+    batch rows sharded (``Shard(0)``) shard the output alike; D sharded
+    (``Shard(2)``) gives each rank the sum over its columns, a ``Partial``
+    output (the function is a sum over D of per-column terms); F sharded
+    is gathered (a column's sum runs over every field); a ``Partial`` emb
+    (a vocab-parallel lookup's) is reduced first, since the square is not
+    linear: onto batch rows where they divide evenly (a reduce-scatter),
+    else replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.dist import regions
+
+    e_pl, o_pl = [], []
+    for p in regions.partials_onto_rows(emb.placements, emb.device_mesh,
+                                        emb.shape[0]):
+        if p == Shard(0):
+            e_pl.append(p), o_pl.append(p)
+        elif p == Shard(2):
+            e_pl.append(p), o_pl.append(Partial())
+        else:
+            e_pl.append(Replicate()), o_pl.append(Replicate())
+    return e_pl, o_pl
+
+
+def _sharded_fm_interaction(emb):
+    """fm_interaction on a DTensor (the ``fm_interaction`` region of
+    ``dist/regions.py``), laid out as :func:`_fm_layouts` says: each rank
+    calls the kernel (forward, and backward where emb needs a gradient) on
+    its shard.  The gradient is laid out as emb: a D-sharded shard's
+    backward is local, since its Σ_f runs per column, and the cotangent of
+    a ``Partial`` output is the whole one on every rank."""
+    from repro_torch.dist import regions
+
+    e_pl, o_pl = _fm_layouts(emb)
+    emb = regions.to(emb, e_pl)
+    return regions.run("fm_interaction", fm_interaction, emb.device_mesh,
+                       (emb,), (e_pl,), o_pl, None, (emb.shape[0],))

@@ -27,20 +27,22 @@ where the quantity is the same:
   inputs), ``cost.model_flops_ratio`` (counted flops over
   ``meta.model_flops``, a device's times the devices where ``cost`` is a
   device's) and ``cost.devices``.  ``cost.scope`` says whose they are:
-  ``"device"`` for the LM cells on a production mesh, which run sharded
-  (``steps.sharded_step`` on rank 0 of the fake group, counted with
-  ``op_cost``'s ``per_device``: the ops on that rank's shards), ``"step"``
-  for the whole step on one device (the FM and GNN cells, whose sharded
-  cells are a later item, and the card).  An LM cell on a mesh keeps the
-  whole step's counts under ``cost_step``;
-* LM cells on a mesh: ``memory.peak_bytes``, the most bytes one device
+  ``"device"`` for the LM, FM and GNN cells on a production mesh, which
+  run sharded (``steps.sharded_step`` on rank 0 of the fake group,
+  counted with ``op_cost``'s ``per_device``: the ops on that rank's
+  shards), ``"step"`` for the whole step on one device (the card, and a
+  record that is not run sharded).  A cell on a mesh keeps the whole
+  step's counts under ``cost_step``;
+* cells on a mesh: ``memory.peak_bytes``, the most bytes one device
   holds at once in the sharded run (its argument shards included), and
   ``collectives``: ``{kind: {count, bytes}}`` for all-reduce, all-gather,
   reduce-scatter, all-to-all and collective-permute (the bytes of each
   collective's result on that device, as the reference counts them), with
-  ``total_bytes`` and ``total_count``.  A train cell whose batch its
+  ``total_bytes`` and ``total_count``.  An LM train cell whose batch its
   data-parallel devices do not divide (the smoke shapes') is not run
-  sharded; its record says why under ``sharded``.
+  sharded; its record says why under ``sharded``.  An FM serve batch that
+  they do not divide (the smoke ``serve_p99``: 16 over 32) runs sharded,
+  fm_interaction's rule replicating its rows.
 
 The mesh ``card`` is one H100: no mesh, the one-device microbatch rule.
 Its record adds ``memory.peak_bytes`` (the most bytes live at once in the
@@ -59,9 +61,7 @@ the larger token batch.
 Skipped cells (a ``None`` shape) are recorded as ``skipped`` with the
 reason, as the reference records them; the run exits 1 on any ``error``.
 The reference's XLA-only keys (``compile_s``, ``temp_bytes``,
-``alias_bytes``) have no counterpart and are not written; the FM and GNN
-cells' collectives and per-device peaks wait for their sharded cells
-(ROADMAP Queue 1 item 10b).
+``alias_bytes``) have no counterpart and are not written.
 """
 from __future__ import annotations
 
@@ -238,7 +238,7 @@ def records(arch, shape_name: str, mesh_names) -> list[dict]:
                 rec["bound"] = card_bound(cost)
             elif cell.in_specs is not None and _uneven_train(cell, mesh):
                 rec["sharded"] = _uneven_train(cell, mesh)
-            elif cell.in_specs is not None:   # an LM cell: run it sharded
+            elif cell.in_specs is not None:   # run it sharded
                 with fake_world(n_dev):
                     mesh = _mesh(mesh_name)
                     with fake:
@@ -258,7 +258,7 @@ def records(arch, shape_name: str, mesh_names) -> list[dict]:
 
 
 def _uneven_train(cell, mesh) -> str | None:
-    """Why a train cell is not run sharded, or None: a batch that its
+    """Why an LM train cell is not run sharded, or None: a batch that its
     data-parallel devices do not divide (the smoke shapes' 2 rows over 16
     or 32) is replicated by ``constrain``, and DTensor's backward then
     shards products over the idle data axes in strided shards that its
@@ -266,7 +266,7 @@ def _uneven_train(cell, mesh) -> str | None:
     batch divides."""
     from repro_torch.launch import steps
 
-    if cell.meta["kind"] != "train":
+    if cell.meta["kind"] != "train" or "tokens" not in cell.args[2]:
         return None
     batch, n_dp = cell.args[2]["tokens"].shape[0], steps._dp_size(mesh)
     if batch % n_dp == 0:

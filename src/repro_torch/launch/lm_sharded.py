@@ -1,9 +1,15 @@
-"""LM cells run as sharded programs across ranks of a ``torch.distributed``
-group: one process a rank, each holding its blocks of the parameters,
-optimizer state, batch and KV cache as DTensors on a ``DeviceMesh``.
+"""Registry cells (LM, FM, GNN) run as sharded programs across ranks of a
+``torch.distributed`` group: one process a rank, each holding its blocks
+of the parameters, optimizer state, batch and KV cache as DTensors on a
+``DeviceMesh``.
 
     PYTHONPATH=src python -m repro_torch.launch.lm_sharded --arch gemma3-1b \\
         --shape train_4k --mesh 2 2 --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.lm_sharded --arch fm \\
+        --shape train_batch --mesh 2 2 --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.lm_sharded \\
+        --arch meshgraphnet --shape full_graph_sm --mesh 2 2 --smoke \\
+        --device cpu
 
 Each rank builds the cell with the mesh (``launch/steps.build_cell``: the
 same seeded values on every rank, or the parameters it is given), lays its
@@ -51,10 +57,10 @@ def local_bytes(args) -> int:
                for x in tree.leaves(args) if isinstance(x, torch.Tensor))
 
 
-def lm_cell(arch_id: str, shape_name: str, device, mesh, smoke: bool = True,
-            tuning: dict | None = None, params=None,
-            config: dict | None = None, shape: dict | None = None):
-    """``steps.build_cell`` of a registry LM on ``mesh`` (None: one
+def registry_cell(arch_id: str, shape_name: str, device, mesh,
+                  smoke: bool = True, tuning: dict | None = None, params=None,
+                  config: dict | None = None, shape: dict | None = None):
+    """``steps.build_cell`` of a registry arch on ``mesh`` (None: one
     device); ``config`` replaces fields of the arch's config (its smoke
     config with ``smoke``), ``shape`` fields of the cell's shape, and
     ``params`` (numpy, the reference's layout) its parameters."""
@@ -73,7 +79,8 @@ def lm_cell(arch_id: str, shape_name: str, device, mesh, smoke: bool = True,
         arch = dataclasses.replace(arch, shapes={
             **arch.shapes, shape_name: {**arch.shapes[shape_name], **shape}})
     if params is not None:
-        params = convert.lm_params(params, device)
+        params = {"lm": convert.lm_params, "recsys": convert.fm_params,
+                  "gnn": convert.gnn_params}[arch.family](params, device)
     return steps.build_cell(arch, shape_name, device, params=params,
                             tuning=tuning, mesh=mesh)
 
@@ -100,9 +107,10 @@ def against_one_device(job: dict, device, loss: float, grads) -> dict:
     relative difference and each leaf's relative L2."""
     from repro_torch.launch.sharding import _path_str
 
-    cell = lm_cell(job["arch"], job["shape"], device, None,
-                   job.get("smoke", True), job.get("tuning"),
-                   job.get("params"), job.get("config"), job.get("cell_shape"))
+    cell = registry_cell(job["arch"], job["shape"], device, None,
+                         job.get("smoke", True), job.get("tuning"),
+                         job.get("params"), job.get("config"),
+                         job.get("cell_shape"))
     l1, g1 = grads_of(cell, cell.args)
     rel = {_path_str(p): _rel_l2(g, w) for (p, w), g in zip(
         tree.flatten_with_path(g1), tree.leaves(grads))}
@@ -123,9 +131,10 @@ def predict(job: dict, world: int) -> dict:
     with fake_world(world):
         mesh = compat_make_mesh(tuple(job["mesh"]), tuple(job["axes"]))
         with FakeTensorMode():
-            cell = lm_cell(job["arch"], job["shape"], "cpu", mesh,
-                           job.get("smoke", True), job.get("tuning"), None,
-                           job.get("config"), job.get("cell_shape"))
+            cell = registry_cell(job["arch"], job["shape"], "cpu", mesh,
+                                 job.get("smoke", True), job.get("tuning"),
+                                 None, job.get("config"),
+                                 job.get("cell_shape"))
             rec = _analyze(cell, mesh, True)
     return {"peak_bytes": rec["peak_bytes"],
             "collectives": {k: v["count"] for k, v in
@@ -134,9 +143,9 @@ def predict(job: dict, world: int) -> dict:
             "collective_bytes": rec["collectives"]["total_bytes"]}
 
 
-def lm_job(rank: int, world: int, device, job: dict) -> dict:
-    """One rank of a sharded LM cell (for ``gnn_partitioned.spawn_ranks``):
-    one step under ``CommDebugMode``.
+def rank_job(rank: int, world: int, device, job: dict) -> dict:
+    """One rank of a sharded registry cell (for
+    ``gnn_partitioned.spawn_ranks``): one step under ``CommDebugMode``.
 
     ``job``: ``arch``, ``shape``, ``mesh`` (its shape) and ``axes``;
     optional ``smoke`` (default True), ``tuning``, ``config``,
@@ -158,10 +167,10 @@ def lm_job(rank: int, world: int, device, job: dict) -> dict:
     device = torch.device(device)
     mesh = compat_make_mesh(tuple(job["mesh"]), tuple(job["axes"]),
                             device.type)
-    cell = lm_cell(job["arch"], job["shape"], device, mesh,
-                   job.get("smoke", True), job.get("tuning"),
-                   job.get("params"), job.get("config"),
-                   job.get("cell_shape"))
+    cell = registry_cell(job["arch"], job["shape"], device, mesh,
+                         job.get("smoke", True), job.get("tuning"),
+                         job.get("params"), job.get("config"),
+                         job.get("cell_shape"))
     args = steps.sharded_args(cell, mesh)
     step = steps.sharded_step(cell, mesh)
     cell = cell._replace(args=())     # only this rank's blocks stay
@@ -249,10 +258,10 @@ def probe(world: int, device="cuda", backend=None,
 
 def run(job: dict, world: int, device="cpu", backend=None,
         timeout_s: float = 600.0) -> list[dict]:
-    """:func:`lm_job` on ``world`` spawned ranks; the results by rank."""
+    """:func:`rank_job` on ``world`` spawned ranks; the results by rank."""
     from repro_torch.launch.gnn_partitioned import spawn_ranks
 
-    return spawn_ranks(lm_job, world, (job,), device=device, backend=backend,
+    return spawn_ranks(rank_job, world, (job,), device=device, backend=backend,
                        timeout_s=timeout_s)
 
 

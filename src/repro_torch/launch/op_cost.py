@@ -40,8 +40,9 @@ one device runs it: the mode lets each DTensor op desugar into the ops on
 this rank's local shards and its collectives (as ``CommDebugMode`` does),
 and counts those; the inputs' live bytes are their local shards.  The ops
 that DTensor's sharding propagation runs on fake tensors of the global
-shapes, to learn an output's shape, are not the device's and are not
-counted (:func:`_propagation_uncounted`).  Each
+shapes, to learn an output's shape or an op's strategy from its
+decomposition, are not the device's and are not counted
+(:func:`_propagation_uncounted`).  Each
 collective of ``torch.distributed._functional_collectives`` is counted by
 kind under the reference's names (``KINDS``), with the bytes of its
 result, as the reference's ``parse_collectives`` counts the result type
@@ -264,11 +265,11 @@ class OpCost(TorchDispatchMode):
         return out
 
 
-@contextlib.contextmanager
-def _propagation_uncounted(mode: OpCost):
-    """Within it, the ops of DTensor's shape propagation (run on fake
-    tensors of the global shapes, and only on its cache's misses) pause
-    ``mode``."""
+def _propagation_methods() -> list[tuple[type, str]]:
+    """(class, method) of each place where DTensor's sharding propagation
+    runs ops on fake tensors of the global shapes: the output's shape, and
+    (where this torch has it) the strategy of an op read off its
+    decomposition (SiLU's or softplus's backward, say)."""
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
 
     name = next((n for n in ("_propagate_tensor_meta_non_cached",
@@ -277,20 +278,40 @@ def _propagation_uncounted(mode: OpCost):
     if name is None:
         raise RuntimeError("this torch's DTensor has no shape propagation "
                            "to leave out of a per-device count")
-    orig = getattr(ShardingPropagator, name)
-
-    def paused(self, *a, **k):
-        mode.paused += 1
-        try:
-            return orig(self, *a, **k)
-        finally:
-            mode.paused -= 1
-
-    setattr(ShardingPropagator, name, paused)
+    out = [(ShardingPropagator, name)]
     try:
+        from torch.distributed.tensor._decompositions import \
+            DecompShardingStrategy
+    except ImportError:
+        return out
+    return out + [(DecompShardingStrategy, "propagate_strategy")]
+
+
+@contextlib.contextmanager
+def _propagation_uncounted(mode: OpCost):
+    """Within it, the ops of DTensor's sharding propagation (run on fake
+    tensors of the global shapes, and only on its cache's misses;
+    :func:`_propagation_methods`) pause ``mode``."""
+    patched = []
+
+    def paused_version(orig):
+        def paused(self, *a, **k):
+            mode.paused += 1
+            try:
+                return orig(self, *a, **k)
+            finally:
+                mode.paused -= 1
+        return paused
+
+    try:
+        for cls, name in _propagation_methods():
+            orig = getattr(cls, name)
+            setattr(cls, name, paused_version(orig))
+            patched.append((cls, name, orig))
         yield
     finally:
-        setattr(ShardingPropagator, name, orig)
+        for cls, name, orig in patched:
+            setattr(cls, name, orig)
 
 
 def analyze_step(fn, *args, track_memory: bool = False,

@@ -3,7 +3,7 @@ LM, FM and GNN train cells and the LM and FM serve cells.
 
 A cell is a plain callable with example inputs made from a seed, for one
 (arch, shape) pair: ``cell.step_fn(*cell.args)`` runs the step.  Built
-with a ``mesh`` (a ``DeviceMesh``), an LM cell also carries the
+with a ``mesh`` (a ``DeviceMesh``), a cell also carries the
 reference's ``in_shardings`` and ``out_shardings`` as spec trees
 (``launch/sharding.py``): ``in_specs`` from :func:`arg_specs`, the single
 source of the input specs, and ``out_specs``; :func:`sharded_step` runs it
@@ -61,7 +61,7 @@ class Cell(NamedTuple):
     step_fn: Callable
     args: tuple           # example inputs, on the cell's device
     meta: dict            # model_flops, param_count, kind, tokens
-    in_specs: Any = None  # LM cells built with a mesh: a spec tree an arg
+    in_specs: Any = None  # cells built with a mesh: a spec tree an arg
     out_specs: Any = None  # and a spec tree an output (None: as it comes)
 
 
@@ -502,7 +502,8 @@ def build_cell(arch: Arch, shape_name: str, device=None, smoke: bool = False,
     ``tuning`` is the reference's, for LMs: ``config`` (fields of the
     config to replace), ``microbatches``, ``mb_budget``; ``zero1`` is
     taken and changes only :func:`arg_specs`.  ``mesh`` (a DeviceMesh,
-    ``launch/mesh.py``) sets an LM train cell's microbatches by the
+    ``launch/mesh.py``) gives the cell its specs (:func:`sharded_step`
+    runs it on the mesh) and sets an LM train cell's microbatches by the
     reference's rule for its data-parallel devices.  For GNNs, ``mode`` =
     ``"partitioned"`` builds this rank's cell of
     ``launch/gnn_partitioned.partitioned_gnn_cell`` (MeshGraphNet only;
@@ -540,11 +541,10 @@ def build_cell(arch: Arch, shape_name: str, device=None, smoke: bool = False,
         gen = torch.Generator(device=device).manual_seed(SEED)
         params = module.init_params(cfg, gen)
     cell = make(arch, shape_name, cfg, shape, params, device, tuning, mesh)
-    if mesh is None or arch.family != "lm":
+    if mesh is None:
         return cell
     return cell._replace(in_specs=arg_specs(arch, cell, mesh, tuning),
-                         out_specs=_lm_out_specs(cfg, cell, mesh, tuning,
-                                                 arch))
+                         out_specs=_out_specs(cfg, cell, mesh, tuning, arch))
 
 
 # ---------------------------------------------------------------------------
@@ -616,15 +616,18 @@ def arg_specs(arch: Arch, cell: Cell, mesh, tuning: dict | None = None):
             (dp,) if big_b else (None,))
 
 
-def _lm_out_specs(cfg, cell: Cell, mesh, tuning: dict, arch: Arch):
-    """The reference's ``out_shardings`` of an LM cell on ``mesh``: train
-    (params, opt_state, None); prefill (the logits', the cache's); decode
-    ((dp or None, "model"), the cache's)."""
+def _out_specs(cfg, cell: Cell, mesh, tuning: dict, arch: Arch):
+    """The reference's ``out_shardings`` of a cell on ``mesh``: train
+    (params, opt_state, None); FM serve and retrieval (dp,); LM prefill
+    (the logits', the cache's); LM decode ((dp or None, "model"), the
+    cache's)."""
     kind = cell.meta["kind"]
     p_sh, second = arg_specs(arch, cell, mesh, tuning)[:2]
     if kind == "train":
         return p_sh, second, None
     dp = dp_axes(mesh)
+    if arch.family == "recsys":
+        return (dp,)
     if kind == "prefill":
         batch, seq = cell.args[1].shape
         cache = tf.init_cache(cfg, batch, seq, device="meta")
@@ -638,9 +641,21 @@ def _lm_out_specs(cfg, cell: Cell, mesh, tuning: dict, arch: Arch):
 def sharded_args(cell: Cell, mesh) -> tuple:
     """The cell's example inputs laid out on ``mesh`` as DTensors by its
     ``in_specs`` (every rank builds the same seeded inputs and keeps its
-    blocks)."""
-    return tuple(sh.distribute(a, spec, mesh)
-                 for a, spec in zip(cell.args, cell.in_specs))
+    blocks).  A GNN batch's edge plan is built anew from the laid-out
+    batch, each rank sorting its own edges (``models/gnn/common.py``): its
+    arrays have the plan's specs, each rank's block of them its own
+    edges' order."""
+    args = []
+    for a, spec in zip(cell.args, cell.in_specs):
+        if isinstance(a, dict) and "plan" in a:
+            a = with_edge_plan(sh.distribute(
+                {k: v for k, v in a.items() if k != "plan"},
+                {k: v for k, v in spec.items() if k != "plan"}, mesh),
+                cell.meta["n_graphs"])
+        else:
+            a = sh.distribute(a, spec, mesh)
+        args.append(a)
+    return tuple(args)
 
 
 def _lay_out(out, specs, mesh):
@@ -673,8 +688,7 @@ def sharded_step(cell: Cell, mesh):
     from repro_torch.dist.constrain import constraint_mesh
 
     if cell.in_specs is None:
-        raise ValueError("the cell carries no specs: build it with a mesh "
-                         "(LM cells)")
+        raise ValueError("the cell carries no specs: build it with a mesh")
 
     def step(*args):
         with constraint_mesh(mesh), implicit_replication():

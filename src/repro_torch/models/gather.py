@@ -20,11 +20,20 @@ mesh axes is looked up vocab-parallel: each rank gathers the ids that fall
 in its rows, zeros elsewhere, and the output is the sum over those axes
 (``Partial``); its gradient is the segment_reduce kernel's sum with the
 output sharded by row range (each rank's ids shifted by its range's
-start), over each rank's own rows in their sorted order.  The rows of
-:func:`gather_nodes` and :func:`scatter_sum` are replicated (an index is
-one rank's, the same on every rank that holds the rows): each rank gathers
-or sums all rows of its feature shard, and the sums keep one fixed order
-within a rank.
+start), over each rank's own rows in their sorted order.
+
+:func:`sorted_index` of a DTensor sorts each rank's rows of the index on
+their own (``sorted_index`` region): the result's arrays are DTensors laid
+out as the index, each rank's ``order`` a permutation of its own rows,
+and ``counts`` the sum over the ranks, sharded by rows where they divide
+evenly.  :func:`gather_nodes` and :func:`scatter_sum` (``rows`` region)
+take such an index, or a plain one (the same on every rank): along a mesh
+dim where the index's rows are sharded (a GNN batch's edges), the gathered
+rows are replicated there (an all-gather of the nodes) and the gather's
+output sharded alike, and the sum over a rank's rows is a ``Partial``,
+reduced onto rows (a reduce-scatter) where they divide evenly, else
+replicated; along any other dim the rows are replicated and the features
+keep their layout.  The sums keep one fixed order within a rank.
 """
 from __future__ import annotations
 
@@ -51,11 +60,15 @@ def sorted_index(index: torch.Tensor, n: int, presorted: bool = False,
     sum) once.  ``presorted`` takes an index that must already be
     non-decreasing, and raises ``ValueError`` if it is not (unchecked with
     ``check`` False: fake tensors hold no values to check).  ``counts``
-    False leaves the rows per id uncounted (None)."""
+    False leaves the rows per id uncounted (None).  A DTensor is sorted
+    rank by rank (:func:`_sharded_sorted_index`)."""
+    from repro_torch.dist import regions
+
+    if regions.is_dtensor(index):
+        return _sharded_sorted_index(index, n, presorted, counts, check)
     index = index.to(torch.int32)
     if presorted:
-        if check and index.numel() > 1 and \
-                not bool((index[1:] >= index[:-1]).all()):
+        if check and not _non_decreasing(index):
             raise ValueError("index must be non-decreasing")
         ids, order = index, torch.arange(index.numel(), dtype=torch.int32,
                                          device=index.device)
@@ -64,9 +77,50 @@ def sorted_index(index: torch.Tensor, n: int, presorted: bool = False,
         order = order.to(torch.int32)
     if not counts:
         return SortedIndex(index, order, ids, None)
+    return SortedIndex(index, order, ids, _counts(ids, n))
+
+
+def _non_decreasing(index) -> bool:
+    return index.numel() <= 1 or bool((index[1:] >= index[:-1]).all())
+
+
+def _counts(ids, n: int):
+    """(n,) float32: the rows of sorted ``ids`` with each id < n."""
     bounds = torch.searchsorted(
         ids, torch.arange(n + 1, dtype=torch.int32, device=ids.device))
-    return SortedIndex(index, order, ids, (bounds[1:] - bounds[:-1]).float())
+    return (bounds[1:] - bounds[:-1]).float()
+
+
+def _sharded_sorted_index(index, n: int, presorted: bool, counts: bool,
+                          check: bool) -> SortedIndex:
+    """:func:`sorted_index` of a DTensor (see the module): its rows sharded
+    (``Shard(0)``) or replicated along each mesh dim; any other layout is
+    replicated first.  ``presorted`` checks every rank's rows (a
+    collective, so every rank raises or none does)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.dist import regions
+
+    mesh = index.device_mesh
+    pl = [p if p == Shard(0) else Replicate() for p in index.placements]
+    index = regions.to(index, pl).to(torch.int32)
+    if presorted and check:
+        ok = torch.tensor([int(_non_decreasing(index.to_local()))],
+                          dtype=torch.int32, device=index.device)
+        if not bool(regions.all_reduce(ok, "min", mesh, range(mesh.ndim))):
+            raise ValueError("index must be non-decreasing")
+    c_pl = [Partial() if p == Shard(0) else p for p in pl]
+
+    def local(il):
+        s = sorted_index(il, n, presorted, counts=False, check=False)
+        return (s.order, s.ids) + ((_counts(s.ids, n),) if counts else ())
+
+    out = regions.run("sorted_index", local, mesh, (index,), (pl,),
+                      (pl, pl) + ((c_pl,) if counts else ()), None,
+                      (index.shape,) * 2 + (((n,),) if counts else ()))
+    cnt = (regions.to(out[2], regions.partials_onto_rows(c_pl, mesh, n))
+           if counts else None)
+    return SortedIndex(index, out[0], out[1], cnt)
 
 
 def _gather(x, index):
@@ -109,45 +163,94 @@ class _GatherNodes(torch.autograd.Function):
         return _segment_sum(grad, order, ids, ctx.n), None, None, None
 
 
-def _rows_replicated(x):
-    """DTensor ``x`` with its rows (dim 0) replicated, any other layout
-    kept, and those placements."""
+def _index_layout(index: SortedIndex, mesh) -> tuple:
+    """A sorted index's placements (a plain index: the same on every rank,
+    replicated), and its (index, order, ids) as region arguments with
+    their in_placements (None for plain tensors)."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.dist import regions
+
+    ix = (index.index, index.order, index.ids)
+    if regions.is_dtensor(index.index):
+        i_pl = tuple(index.index.placements)
+        return i_pl, ix, (i_pl,) * 3
+    return (Replicate(),) * mesh.ndim, ix, (None,) * 3
+
+
+def _rows_gathered(p):
+    """A placement with a shard of rows (dim 0) replicated."""
     from torch.distributed.tensor import Replicate, Shard
 
+    return Replicate() if p == Shard(0) else p
+
+
+def _sharded_gather(x, index: SortedIndex):
+    """:func:`gather_nodes` on DTensor ``x`` (the ``rows`` region; see the
+    module): x replicated where the index's rows are sharded, its gradient
+    there a ``Partial`` sum of a rank's rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
     from repro_torch.dist import regions
 
-    pl = [Replicate() if isinstance(p, Shard) and p.dim == 0 else p
-          for p in x.placements]
-    return regions.to(x, pl), pl
-
-
-def _sharded_rows(fn, x, index: SortedIndex, *extra):
-    """``fn`` (an autograd Function's apply) on each rank's block of
-    DTensor ``x``, rows replicated (the ``rows`` region)."""
-    from repro_torch.dist import regions
-
-    x, pl = _rows_replicated(x)
-    ix = tuple(regions.local(t) for t in (index.index, index.order,
-                                           index.ids))
-    rows = extra[0] if extra else index.index.shape[0]
+    mesh = x.device_mesh
+    i_pl, ix, ix_pl = _index_layout(index, mesh)
+    x_pl, o_pl, g_pl = [], [], []
+    for p, ip in zip(x.placements, i_pl):
+        if ip == Shard(0):
+            x_pl.append(Replicate()), o_pl.append(ip), g_pl.append(Partial())
+        else:
+            q = _rows_gathered(p)
+            x_pl.append(q), o_pl.append(q), g_pl.append(q)
+    x = regions.to(x, x_pl)
     return regions.run(
-        "rows", lambda xl, *a: fn(xl, *a, *extra), x.device_mesh,
-        (x,) + ix, (pl, None, None, None), pl, (pl, None, None, None),
-        (rows, *x.shape[1:]))
+        "rows", _GatherNodes.apply, mesh, (x,) + ix, (x_pl,) + ix_pl, o_pl,
+        (g_pl, None, None, None), (index.index.shape[0], *x.shape[1:]))
 
 
-def scatter_sum(values, index: SortedIndex, n: int):
-    """values (E, ...), index in [0, n] -> (n, ...) (ghost dropped)."""
+def _sharded_scatter(values, index: SortedIndex, n: int, replicated: bool):
+    """:func:`scatter_sum` of DTensor ``values`` (the ``rows`` region; see
+    the module): values' rows sharded as the index's, each rank's sum a
+    ``Partial``, reduced onto rows where they divide evenly (or
+    replicated)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.dist import regions
+
+    mesh = values.device_mesh
+    i_pl, ix, ix_pl = _index_layout(index, mesh)
+    v_pl, o_pl = [], []
+    for p, ip in zip(values.placements, i_pl):
+        if ip == Shard(0):
+            v_pl.append(ip), o_pl.append(Partial())
+        else:
+            q = _rows_gathered(p)
+            v_pl.append(q), o_pl.append(q)
+    values = regions.to(values, v_pl)
+    out = regions.run(
+        "rows", lambda vl, *a: _ScatterSum.apply(vl, *a, n), mesh,
+        (values,) + ix, (v_pl,) + ix_pl, o_pl, (v_pl, None, None, None),
+        (n, *values.shape[1:]))
+    return regions.to(out, [Replicate() if isinstance(p, Partial) else p
+                            for p in o_pl] if replicated else
+                      regions.partials_onto_rows(o_pl, mesh, n))
+
+
+def scatter_sum(values, index: SortedIndex, n: int,
+                replicated: bool = False):
+    """values (E, ...), index in [0, n] -> (n, ...) (ghost dropped).  On
+    DTensors, ``replicated`` asks for the sum on every rank (a per-graph
+    sum), where it would be sharded by rows like the nodes."""
     from repro_torch.dist import regions
 
     if regions.is_dtensor(values):
-        return _sharded_rows(_ScatterSum.apply, values, index, n)
+        return _sharded_scatter(values, index, n, replicated)
     return _ScatterSum.apply(values, index.index, index.order, index.ids, n)
 
 
 def scatter_mean(values, index: SortedIndex, n: int):
     s = scatter_sum(values, index, n)
-    cnt = index.counts[:n]
+    cnt = index.counts if index.counts.shape[0] == n else index.counts[:n]
     return s / torch.clamp(cnt, min=1.0)[:, None]
 
 
@@ -156,7 +259,7 @@ def gather_nodes(x, index: SortedIndex):
     from repro_torch.dist import regions
 
     if regions.is_dtensor(x):
-        return _sharded_rows(_GatherNodes.apply, x, index)
+        return _sharded_gather(x, index)
     return _GatherNodes.apply(x, index.index, index.order, index.ids)
 
 

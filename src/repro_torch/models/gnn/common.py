@@ -19,8 +19,14 @@ index op), and a gather's gradient is a scatter by the same index, on the
 kernel through the index's sorted order.  Neither goes through
 ``index_add_`` or indexing's own backward, which add floats with atomics
 on CUDA, so a training step is repeatable bit for bit.  Data of more than
-two dimensions is summed as (E, F) rows.  ``repro.dist.constrain`` is a
-no-op on one card and has no counterpart here.
+two dimensions is summed as (E, F) rows.
+
+On DTensors (a sharded step: node and edge rows over every mesh axis) the
+plan is built rank by rank (:func:`edge_plan`: each rank sorts its own
+edges, ``models/gather.py``), a gather replicates the node rows it reads,
+and a sum over a rank's edges is reduced onto the nodes' rows, or
+replicated for the per-graph sums.  The models ``constrain`` their node
+and edge activations at the reference's sites (``dist/constrain.py``).
 """
 from __future__ import annotations
 
@@ -47,12 +53,19 @@ def edge_plan(senders, receivers, graph_id, n_graphs: int,
               check: bool = True) -> EdgePlan:
     """The batch's plan; ``graph`` is None unless ``graph_id`` is
     non-decreasing, which ``check`` False trusts without looking (fake
-    tensors hold no values)."""
+    tensors hold no values).  On DTensors each rank's rows are sorted on
+    their own (a rank's graph ids need only be non-decreasing within it),
+    and the per-graph counts are replicated."""
+    from repro_torch.dist import regions
+
     n = graph_id.shape[0]
     try:
         graph = sorted_index(graph_id, n_graphs, presorted=True, check=check)
     except ValueError:
         graph = None
+    if graph is not None and regions.is_dtensor(graph.counts):
+        graph = graph._replace(counts=regions.to(
+            graph.counts, regions.replicated_placements(graph_id)))
     return EdgePlan(sorted_index(senders, n), sorted_index(receivers, n),
                     graph)
 
@@ -130,19 +143,38 @@ def edge_vectors(batch: GraphBatch):
     """(E, 3) displacement, (E,) distance; padding edges give 0/0.  The
     distance is ``norm(rel + 1e-12)``, as the reference takes it."""
     n = batch.node_feat.shape[0]
-    pos = torch.cat([batch.pos, batch.pos.new_zeros((1, 3))])
-    rel = pos[batch.receivers.long()] - pos[batch.senders.long()]
+    rel = _displacements(batch.pos, batch.receivers, batch.senders)
     dist = torch.linalg.vector_norm(rel + 1e-12, dim=-1)
     valid = (batch.senders < n) & (batch.receivers < n)
     return (torch.where(valid[:, None], rel, 0.0),
             torch.where(valid, dist, 0.0), valid)
 
 
+def _displacements(pos, receivers, senders):
+    """pos[receivers] - pos[senders] (E, 3), the ghost index N at the
+    origin (no gradient); on DTensors each rank reads its own edges' rows
+    of the positions, replicated (the ``rows`` region)."""
+    from repro_torch.dist import regions
+
+    def rel(p, r, s):
+        p = torch.cat([p, p.new_zeros((1, 3))])
+        return p[r.long()] - p[s.long()]
+
+    if not regions.is_dtensor(pos):
+        return rel(pos, receivers, senders)
+    rep = regions.replicated_placements(pos)
+    return regions.run("rows", rel, pos.device_mesh,
+                       (regions.to(pos, rep), receivers, senders),
+                       (rep, receivers.placements, senders.placements),
+                       receivers.placements, None, (receivers.shape[0], 3))
+
+
 def graph_sum(atom_e, batch: GraphBatch):
     """Per-graph sums (G,) of per-node values (N,), pad nodes (graph_id G)
-    dropped; ``graph_id`` must be non-decreasing."""
+    dropped; ``graph_id`` must be non-decreasing (on DTensors, within each
+    rank's rows).  A sharded sum is replicated on every rank."""
     graph = plan_of(batch).graph
     if graph is None:
         raise ValueError("graph_id must be non-decreasing for the per-graph "
                          "sum on segment_reduce")
-    return scatter_sum(atom_e, graph, batch.n_graphs)
+    return scatter_sum(atom_e, graph, batch.n_graphs, replicated=True)

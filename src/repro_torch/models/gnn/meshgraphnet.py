@@ -6,7 +6,9 @@ over stacked (L, ...) params under ``jax.checkpoint``.  Here they are a
 Python loop over the layer slices, each block under
 ``torch.utils.checkpoint``: the backward pass keeps only each block's
 input (h, e) and recomputes the block, so the saved activations are 15 x
-(N + E) x d_hidden floats, not every edge MLP's intermediates.
+(N + E) x d_hidden floats, not every edge MLP's intermediates.  On a mesh
+each block's node and edge rows are sharded over every axis
+(``constrain(h, "all", None)`` at the reference's sites).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.constrain import constrain
 from repro_torch.models.gnn.common import (
     GraphBatch, edge_vectors, gather_nodes, layer, mlp_apply, mlp_init,
     plan_of, scatter_sum,
@@ -64,13 +67,15 @@ def init_params(cfg: MGNConfig, gen: torch.Generator):
 
 
 def _block(blk, h, e, senders, receivers, valid):
+    h = constrain(h, "all", None)
+    e = constrain(e, "all", None)
     hs = gather_nodes(h, senders)
     hr = gather_nodes(h, receivers)
     e = e + mlp_apply(blk["edge"], torch.cat([e, hs, hr], -1),
                       act=F.relu) * valid
     agg = scatter_sum(e, receivers, h.shape[0])
     h = h + mlp_apply(blk["node"], torch.cat([h, agg], -1), act=F.relu)
-    return h, e
+    return constrain(h, "all", None), constrain(e, "all", None)
 
 
 def forward(cfg: MGNConfig, params, batch: GraphBatch):

@@ -11,7 +11,8 @@ The reference's quirks are kept: radial path 4 feeds both the vector and
 the tensor messages; ``mix_v`` and ``mix_t`` use only their first layer's
 ``w`` (their biases get zero gradients); ``v_norm`` is sqrt(sum + 1e-12).
 Three scatter sums per layer; each layer runs under
-``torch.utils.checkpoint`` as the reference's under ``jax.checkpoint``.
+``torch.utils.checkpoint`` as the reference's under ``jax.checkpoint``, its
+features' node rows under ``constrain`` at the reference's sites.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist import regions
+from repro_torch.dist.constrain import constrain
 from repro_torch.models.gnn.common import (
     GraphBatch, cosine_cutoff, edge_vectors, gather_nodes, graph_sum, layer,
     mlp_apply, mlp_init, plan_of, rbf_expand, scatter_sum,
@@ -40,6 +43,12 @@ def _y2(rhat):
 
 
 def _sym_traceless(t):
+    """The traceless symmetric part of (..., 3, 3) ``t``; on DTensors each
+    rank's rows on their own (the ``per_row`` region: DTensor gathers a
+    sharded tensor whole for ``diagonal``)."""
+    if regions.is_dtensor(t):
+        return regions.run("per_row", _sym_traceless, t.device_mesh, (t,),
+                           (t.placements,), t.placements, None, t.shape)
     sym = 0.5 * (t + t.transpose(-1, -2))
     tr = torch.diagonal(sym, dim1=-2, dim2=-1).sum(-1)
     return sym - tr[..., None, None] * _eye3(t) / 3.0
@@ -87,6 +96,9 @@ def _interact(cfg, lp, s, V, T, rbf, env, rhat, senders, receivers):
 
     s (N, C) scalars; V (N, C, 3) vectors; T (N, C, 3, 3) traceless sym.
     """
+    s = constrain(s, "all", None)
+    V = constrain(V, "all", None, None)
+    T = constrain(T, "all", None, None, None)
     n, c = s.shape
     R = mlp_apply(lp["radial"], rbf, act=F.silu) * env     # (E, P*C)
     R = R.reshape(R.shape[0], cfg.n_paths, c)              # (E, P, C)

@@ -4,7 +4,8 @@
 The species embedding lookup is a :func:`gather_nodes` over the species'
 sorted order, so its backward sums on the segment_reduce kernel (an
 indexing backward would add floats with atomics); the per-graph energy is
-a sum over the sorted ``graph_id`` on the kernel too.
+a sum over the sorted ``graph_id`` on the kernel too.  ``constrain`` marks
+the node and message rows at the reference's sites.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.constrain import constrain
 from repro_torch.models.gnn.common import (
     GraphBatch, cosine_cutoff, edge_vectors, gather_nodes, graph_sum, layer,
     mlp_apply, mlp_init, plan_of, rbf_expand, scatter_sum, sorted_index,
@@ -65,11 +67,14 @@ def species_index(batch: GraphBatch, n_species: int):
 
 
 def _block(blk, h, rbf, env, senders, receivers):
+    h = constrain(h, "all", None)
     w = mlp_apply(blk["filter"], rbf, act=shifted_softplus,
                   final_act=True) * env            # (E, d)
     src = gather_nodes(mlp_apply(blk["in"], h), senders)
-    agg = scatter_sum(src * w, receivers, h.shape[0])
-    return h + mlp_apply(blk["out"], agg, act=shifted_softplus)
+    msg = constrain(src * w, "all", None)
+    agg = scatter_sum(msg, receivers, h.shape[0])
+    return constrain(h + mlp_apply(blk["out"], agg, act=shifted_softplus),
+                     "all", None)
 
 
 def forward(cfg: SchNetConfig, params, batch: GraphBatch):

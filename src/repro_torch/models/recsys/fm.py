@@ -7,7 +7,11 @@ the fm_interaction kernel (``kernels/fm_interaction``; its plain version on
 the CPU).  In training the lookups go through ``models/gather.py``: one
 sorted index of the batch's flat ids serves ``table`` and ``linear``, and
 each table's gradient is one segment_reduce sum; fm_interaction's gradient
-is its backward kernel.
+is its backward kernel.  On DTensors (a sharded step: both tables' rows
+over ("data", "model")) the lookups are vocab-parallel and each rank sorts
+its own ids for the gradient (``models/gather.py``); fm_interaction takes
+the lookup's ``Partial`` rows reduced onto the batch
+(``kernels/fm_interaction/ops.py``).
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.dist import regions
 from repro_torch.kernels.fm_interaction import ops
 from repro_torch.models.gather import embedding, sorted_index
 from repro_torch.models.layers import embed_init
@@ -59,7 +64,8 @@ def forward(cfg: FMConfig, params, ids):
     """ids (B, F) integer per-field raw ids -> scores (B,) float32."""
     flat = _flat_ids(cfg, ids, cfg.n_fields)                 # (B, F)
     index = None
-    if torch.is_grad_enabled() and params["table"].requires_grad:
+    if torch.is_grad_enabled() and params["table"].requires_grad and \
+            not regions.is_dtensor(params["table"]):
         index = sorted_index(flat.reshape(-1), cfg.vocab_total, counts=False)
     emb = embedding(params["table"], flat, index)            # (B, F, D)
     lin = embedding(params["linear"], flat, index)           # (B, F)
@@ -87,11 +93,12 @@ def retrieval_scores(cfg: FMConfig, params, user_ids, cand_ids):
     The FM score decomposes as const(u) + <sum_f v_uf, v_i> + lin_i for a
     single candidate field; this returns the candidate-dependent part.
     user_ids (1, F-1); cand_ids (C,) raw ids in the item field (field F-1).
+    Both lookups go through ``embedding``, so a sharded table serves them.
     """
     f_user = cfg.n_fields - 1
-    u_emb = params["table"][_flat_ids(cfg, user_ids, f_user)]  # (1, F-1, D)
+    u_emb = embedding(params["table"], _flat_ids(cfg, user_ids, f_user))
     u_vec = torch.sum(u_emb, dim=1)                            # (1, D)
     flat_c = (cand_ids.long() % cfg.rows_per_field) + f_user * cfg.rows_per_field
-    c_emb = params["table"][flat_c]                            # (C, D)
-    c_lin = params["linear"][flat_c]                           # (C,)
+    c_emb = embedding(params["table"], flat_c)                 # (C, D)
+    c_lin = embedding(params["linear"], flat_c)                # (C,)
     return c_emb.float() @ u_vec[0].float() + c_lin            # (C,)

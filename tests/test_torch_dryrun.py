@@ -194,11 +194,10 @@ def test_constrain_redistributes_a_dtensor():
 
 def test_dryrun_cli_at_smoke_size(tmp_path):
     """Both production meshes and the card: 36 ok and 4 skipped records a
-    mesh, each with the reference's keys and no XLA-only one, exit 0; an
-    LM cell on a mesh runs sharded (a device's cost, peak and
-    collectives, the whole step's cost under cost_step) unless it is a
-    train cell whose smoke batch its data-parallel devices do not
-    divide."""
+    mesh, each with the reference's keys and no XLA-only one, exit 0; a
+    cell on a mesh runs sharded (a device's cost, peak and collectives,
+    the whole step's cost under cost_step) unless it is an LM train cell
+    whose smoke batch its data-parallel devices do not divide."""
     out = str(tmp_path)
     assert dryrun.main(["--smoke", "--mesh", "both", "--out", out]) == 0
     assert dryrun.main(["--smoke", "--mesh", "card", "--out", out]) == 0
@@ -215,15 +214,14 @@ def test_dryrun_cli_at_smoke_size(tmp_path):
             if r["status"] == "skipped":
                 assert r["reason"]
                 continue
-            sharded = mesh_name != "card" and r["arch"] in LM and \
-                "sharded" not in r
+            sharded = mesh_name != "card" and "sharded" not in r
             assert ("collectives" in r) == sharded == ("cost_step" in r)
             assert r["cost"]["scope"] == ("device" if sharded else "step")
             if sharded:
                 assert r["collectives"]["total_count"] > 0
                 assert r["memory"]["peak_bytes"] > 0
-            elif mesh_name != "card" and r["arch"] in LM:
-                assert r["meta"]["kind"] == "train"
+            elif mesh_name != "card":
+                assert r["arch"] in LM and r["meta"]["kind"] == "train"
             assert r["cost"]["flops"] > 0 and r["cost"]["bytes"] > 0
             assert r["cost"]["devices"] == dryrun.devices(mesh_name)
             if r["meta"]["kind"] == "train" and r["arch"] in (

@@ -1,4 +1,4 @@
-"""The dry run of the LM cells run sharded (``launch/dryrun.py``), on the
+"""The dry run of the cells run sharded (``launch/dryrun.py``), on the
 CPU in one process: rank 0 of a fake group of 256 or 512 ranks runs the
 cell's ``steps.sharded_step`` on fake DTensors under ``op_cost``'s
 per-device count.
@@ -6,10 +6,13 @@ per-device count.
 Gemma-3 1B ``train_4k`` at full size on 16x16 and the DeepSeek-V2-Lite
 smoke ``prefill_32k`` on both meshes: a device's cost, its peak bytes and
 its collectives by kind under the reference's key names, and the whole
-step's cost under ``cost_step``; the bytes of the DTensors' local shards
-equal ``argument_leaves``' per-device bytes (which equal the reference's,
-``tests/test_torch_dryrun.py``); the ``card`` record keeps PR 18's
-fields and counts.
+step's cost under ``cost_step``; FM ``train_batch``, MeshGraphNet
+``ogb_products`` and NequIP ``molecule`` at full size on 16x16, whose
+rows are divided (a device's flops at most twice the step's over the
+data-parallel devices, FM, or over every device, the GNNs); the bytes of
+the DTensors' local shards equal ``argument_leaves``' per-device bytes
+(which equal the reference's, ``tests/test_torch_dryrun.py``); the
+``card`` record keeps its one-device fields and counts.
 """
 import dataclasses
 
@@ -69,6 +72,39 @@ def test_deepseek_smoke_prefill_records(mesh_name):
     rec = dryrun.record(arch, "prefill_32k", mesh_name)
     _assert_sharded(rec)
     assert rec["cost"]["by_kernel"]["flash_attention"]["calls"] == 2
+
+
+def test_fm_train_record_divides_the_batch():
+    """FM train_batch (65,536 rows over 16 data devices, both tables' rows
+    over all 256) sharded: one fm_interaction launch and one backward a
+    device, a segment_reduce for each table's gradient, reduce-scatters
+    and all-gathers of the lookup's rows; a device's flops at most twice
+    the step's over the data-parallel devices."""
+    rec = dryrun.record(get_arch("fm"), "train_batch", "pod16x16")
+    _assert_sharded(rec)
+    k = rec["cost"]["by_kernel"]
+    assert k["fm_interaction"]["calls"] == k["fm_interaction_bwd"][
+        "calls"] == 1
+    assert k["segment_reduce"]["calls"] == 2
+    c = rec["collectives"]
+    assert c["reduce-scatter"]["count"] > 0 and c["all-gather"]["count"] > 0
+    assert rec["cost"]["flops"] <= 2 * rec["cost_step"]["flops"] / 16
+
+
+def test_gnn_records_divide_the_rows():
+    """MeshGraphNet ogb_products (2,449,029 nodes, 61,859,140 edges, 15
+    blocks) and NequIP molecule sharded on 16x16, node and edge rows over
+    all 256 devices: segment_reduce launched as on one device (60 and 45
+    a step), a device's flops at most twice the step's over the
+    devices."""
+    for arch_id, shape_name, sums in (("meshgraphnet", "ogb_products", 60),
+                                      ("nequip", "molecule", 45)):
+        rec = dryrun.record(get_arch(arch_id), shape_name, "pod16x16")
+        _assert_sharded(rec)
+        assert rec["cost"]["by_kernel"]["segment_reduce"]["calls"] == \
+            rec["cost_step"]["by_kernel"]["segment_reduce"]["calls"] == sums
+        assert rec["collectives"]["reduce-scatter"]["count"] > 0
+        assert rec["cost"]["flops"] <= 2 * rec["cost_step"]["flops"] / 256
 
 
 @pytest.mark.parametrize("arch_id,shape_name", [

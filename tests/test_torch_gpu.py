@@ -725,7 +725,7 @@ def test_sharded_step_one_rank_on_card_is_bitwise(cuda):
     def run(arch_id, mesh):
         out, cache, launches = [], None, []
         for shape in ("train_4k", "prefill_32k", "decode_32k"):
-            cell = lm_sharded.lm_cell(arch_id, shape, cuda, mesh)
+            cell = lm_sharded.registry_cell(arch_id, shape, cuda, mesh)
             args, step = (cell.args, cell.step_fn) if mesh is None else (
                 steps.sharded_args(cell, mesh),
                 steps.sharded_step(cell, mesh))

@@ -78,8 +78,8 @@ def _one_device(arch_id: str, params, mesh=None) -> dict:
     out, cache = {}, None
     for name, shape, tuning in cases.LM_CELLS + (("decode", "decode_32k",
                                                   None),):
-        cell = lm_sharded.lm_cell(arch_id, shape, "cpu", mesh,
-                                  tuning=tuning, params=params)
+        cell = lm_sharded.registry_cell(arch_id, shape, "cpu", mesh,
+                                        tuning=tuning, params=params)
         if mesh is None:
             args, step = cell.args, cell.step_fn
         else:
@@ -119,8 +119,8 @@ def test_sharded_cells_match_reference_and_one_device(arch_id,
     parameters, and onto the mesh with their placements."""
     runs = _runs(arch_id, tmp_path_factory)
     jparams = jax.tree.map(jnp.asarray, runs["params"])
-    cell = lm_sharded.lm_cell(arch_id, "train_4k", "cpu", None,
-                              params=runs["params"])
+    cell = lm_sharded.registry_cell(arch_id, "train_4k", "cpu", None,
+                                    params=runs["params"])
     batch = {k: jnp.asarray(v.numpy()) for k, v in cell.args[2].items()}
     jcell = jsteps.build_cell(jax_get_arch(arch_id), "train_4k",
                               make_host_mesh(), smoke=True)
@@ -198,12 +198,12 @@ def test_sharded_cells_carry_the_reference_specs():
     with fake_world(4):
         mesh = mhm(model_axis=2)
         for shape in ("train_4k", "prefill_32k", "decode_32k"):
-            cell = lm_sharded.lm_cell("gemma3-1b", shape, "cpu", mesh)
+            cell = lm_sharded.registry_cell("gemma3-1b", shape, "cpu", mesh)
             assert cell.in_specs is not None and cell.out_specs is not None
             if shape == "train_4k":
                 assert cell.out_specs[:2] == cell.in_specs[:2]
                 assert cell.out_specs[2] is None
             else:   # the logits' spec; decode: a batch of 2 over 2 devices
                 assert cell.out_specs[0] == (("data",), "model")
-    assert lm_sharded.lm_cell("gemma3-1b", "train_4k", "cpu",
-                              None).in_specs is None
+    assert lm_sharded.registry_cell("gemma3-1b", "train_4k", "cpu",
+                                    None).in_specs is None

@@ -5,6 +5,11 @@ flash_attention's forward and backward with the batch over "data" and the
 query heads over "model" (k, v replicated there, or sharded alike when
 Hkv = H), at (H, Hkv, model) = (4, 1, 2), (8, 2, 4), (6, 2, 4): the last
 has a shard whose heads straddle two kv groups and an empty shard.
+fm_interaction's forward and backward with the batch rows sharded, D
+sharded (a ``Partial`` score), a ``Partial`` emb (a vocab-parallel
+lookup's: reduced onto the rows, or replicated where they do not divide)
+and F sharded (gathered), also against the reference's
+``fm_interaction_ref`` and its ``jax.grad`` through ``jax.jit``.
 segment_reduce with the rows sharded (a ``Partial`` sum), the output
 sharded by segment range (each rank's ids shifted), and both;
 ``models/gather.py``'s gather_nodes and scatter_sum with sharded
@@ -16,10 +21,15 @@ exact.
 """
 import numpy as np
 import pytest
+from jax_programs import release_jax_programs  # noqa: F401
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
 import sharded_cases as cases  # noqa: E402
+from repro.kernels.fm_interaction.ref import fm_interaction_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.segment_reduce import ops as sr  # noqa: E402
 from repro_torch.launch.gnn_partitioned import spawn_ranks  # noqa: E402
@@ -86,6 +96,37 @@ def test_flash_attention_zero_heads_on_cpu():
         fa_ops.flash_attention(torch.zeros(2, 0, 8, 16),
                                torch.zeros(2, 1, 8, 16),
                                torch.zeros(2, 1, 8, 16))
+
+
+# the scores' placements of each case of FM_RULE_CASES
+FM_RULE_OUT = {"batch": ["Shard(0)", "Shard(0)"],
+               "columns": ["Shard(0)", "Partial"],
+               "partial": ["Shard(0)", "Replicate"],
+               "fields": ["Replicate", "Replicate"]}
+
+
+@pytest.mark.parametrize("name,b,placements", cases.FM_RULE_CASES,
+                         ids=[c[0] for c in cases.FM_RULE_CASES])
+def test_fm_interaction_sharded_matches_one_device(world, name, b,
+                                                   placements):
+    """The scores and emb's gradient of the sharded call (gathered)
+    against the same call on whole tensors and against the reference's
+    ``fm_interaction_ref`` and its gradient; the scores laid out as the
+    rule says."""
+    a = cases.fm_rule_inputs(b)
+    emb, w = torch.from_numpy(a["emb"]), torch.from_numpy(a["w"])
+    want = [x.detach().numpy() for x in cases.fm_rule_one(emb, w)]
+    ref = jax.jit(jax.value_and_grad(
+        lambda e: jnp.sum(fm_interaction_ref(e) * a["w"])))
+    jscores = jax.jit(fm_interaction_ref)(a["emb"])
+    jgrad = ref(a["emb"])[1]
+    (got, pl) = world[f"fm_{name}"]
+    assert pl == FM_RULE_OUT[name]
+    for label, g, w1, w2 in zip(("scores", "grad"), got, want,
+                                (jscores, jgrad)):
+        assert g.shape == w1.shape, label
+        assert _rel_l2(g, w1) <= RTOL, (label, _rel_l2(g, w1))
+        assert _rel_l2(g, np.asarray(w2)) <= RTOL, label
 
 
 @pytest.mark.parametrize("name,dtype,rows,vocab", cases.SEGMENT_CASES,
