@@ -49,8 +49,8 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       parts, trial parts, cut and level stats equal (e)'s bit for bit, and
       segment_reduce launched as often as the loop's queries need; the
       kernel, its plain version and index_add_ timed at the finest level's
-      shapes; the top device operations and the sort's share of them (a
-      profile of device activity only); the kernel timed at every shape
+      shapes (a profiled partition() is cut for the script's time
+      limit); the kernel timed at every shape
       the timed partition() gave it (inputs
       kept on the host during that run; the sum of launches x time); and a
       record at F = 128, M = 2^20 (runs of about 8 rows) against plain and
@@ -236,20 +236,23 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout's
       steps: losses, parameters, logits and the cache bit for bit the
       unsharded cell's; flash_attention, its backward and segment_reduce
       launched as (v) counts them; step time and peak memory beside (v)'s.
-      (z2) 4 ranks as 4 processes on the one card over gloo (CUDA tensors)
-      on a (2, 2) ("data", "model") mesh: first whether gloo carries each
-      collective DTensor issues (``lm_sharded.probe``, each in processes
-      of its own, until the first refusal), and the dry run's prediction
-      of each step on a fake (2, 2) world; where gloo carries them all,
-      for Gemma-3 1B at full width and depth 6 (batch 4 x 1024) and
-      DeepSeek-V2-Lite's smoke config (experts over "model"): one train
-      step's loss within 1e-3 relative and each gradient leaf within 2e-2
+      (z2) 4 ranks as 4 processes on the one card over ``gloo_host``
+      (``dist/host_group.py``: every collective staged through host
+      memory) on a (2, 2) ("data", "model") mesh: first the record of
+      plain gloo on CUDA tensors (``lm_sharded.probe``, each collective in
+      processes of its own, until the first refusal) and gloo_host's
+      probes (all four must carry); then for Gemma-3 1B at full width and
+      depth 6 (batch 4 x 1024), DeepSeek-V2-Lite's smoke config (experts
+      over "model"), FM train_batch at full width (B = 65,536) and
+      MeshGraphNet 15 x 128 on mesh_batch(256, 256): one train step's
+      loss within 1e-3 relative and each gradient leaf within 2e-2
       (bfloat16) or 1e-4 (float32) relative L2 of the one-device step
       (``SHARDED_GATES``); each rank's peak within ``PEAK_RATIO`` of the
-      prediction and its collectives by kind equal to that count; the
-      spawn and the joins time out at 240 s.  (With torch 2.11 gloo ends
-      its processes on an all-gather of CUDA tensors: the step is not run
-      there, and the four-rank check is the CPU tests'.)  (z3) a zero-head flash_attention call on the card
+      dry run's prediction on a fake (2, 2) world and its collectives by
+      kind equal to that count; each of the job's kernels launched on
+      every rank; the probes and the four steps run in one world of
+      ranks, which times out at 600 s.  (z3) a
+      zero-head flash_attention call on the card
       returns an empty output with no launch.
   (z4) the FM and GNN cells as sharded programs on a one-rank NCCL mesh:
       FM at its published width (39 fields, D 10, 262,144 rows a field)
@@ -856,7 +859,6 @@ def phase_sorted_full_width(tp, dev, g, cfg_ell, res_ell):
     import torch
 
     from repro_torch.core import connectivity as cn
-    from repro_torch.core.partition import partition
     from repro_torch.kernels.segment_reduce import ops
     from repro_torch.kernels.segment_reduce.ref import segment_sum_sorted_ref
 
@@ -952,16 +954,10 @@ def phase_sorted_full_width(tp, dev, g, cfg_ell, res_ell):
     for what, args in (("run-weight", (data, ids, s)),
                        ("conn_self", (data2, ids2, s2))):
         _segment_kernels(what, lambda a=args: ops.segment_sum_sorted(*a))
-    # the profile records device activity only, as (f)'s: the host-side
-    # operator events of the ~330,000 device operations cost the profiler
-    # and its report most of this phase's time, and nothing here reads them
-    t_prof = time.perf_counter()
-    groups = phase_profile("(g)", lambda: partition(g, cfg),
-                           res.times["total_s"], cuda_only=True)
-    print(f"(g) the profiled partition() and its report took "
-          f"{time.perf_counter() - t_prof:.1f} s")
-    print(f"(g) segment_reduce device time per partition(): "
-          f"{groups.get('segment_reduce', 'not measured')} ms (the profile)")
+    # a profiled partition() (~92 s with its report) is not run: the
+    # script's time limit (its per-kernel device times are the lines above)
+    print("(g) segment_reduce device time per partition(): not measured "
+          "(the profiled run is cut for the script's time limit)")
     _segment_levels(first, by_shape)
     _segment_wide(dev)
     return {
@@ -977,7 +973,7 @@ def phase_sorted_full_width(tp, dev, g, cfg_ell, res_ell):
         "conn_self_sum": {"ms": ms2, "bound_ms": bytes2 / HBM_BYTES_PER_S
                           * 1e3, "shape": {"M": ids2.numel(), "F": 1,
                                            "S": s2}},
-        "device_ms_per_partition": groups.get("segment_reduce"),
+        "device_ms_per_partition": None,
     }
 
 
@@ -3817,16 +3813,36 @@ def phase_dryrun(tp, dev):
     return out
 
 
-# (z2): a train step of 4 gloo ranks on a (2, 2) mesh against the one-device
-# step of the same config: the loss's relative difference and each
-# gradient leaf's relative L2, bfloat16 at full width and float32 smoke
+# (z2): a train step of 4 ranks on the one card (``gloo_host``: every
+# collective staged through host memory) on a (2, 2) mesh against the
+# one-device step of the same config: the loss's relative difference and
+# each gradient leaf's relative L2, bfloat16 for Gemma at full width,
+# float32 for the rest
 SHARDED_GATES = {"bfloat16": (1e-3, 2e-2), "float32": (1e-3, 1e-4)}
+MGN_SHARDED_SIDE = 256   # (r)'s mesh_batch(512, 512) cut to the time limit
 SHARDED_JOBS = (
     # Gemma-3 1B at full width, depth 6 (five local layers, one global)
     {"arch": "gemma3-1b", "shape": "train_4k", "smoke": False,
-     "config": {"n_layers": 6}, "cell_shape": {"batch": 4, "seq": 1024}},
+     "config": {"n_layers": 6}, "cell_shape": {"batch": 4, "seq": 1024},
+     "dtype": "bfloat16",
+     "kernels": ("flash_attention", "flash_attention_bwd", "segment_reduce")},
     # DeepSeek-V2-Lite's smoke config: MLA, 8 experts over "model"
-    {"arch": "deepseek-v2-lite-16b", "shape": "train_4k", "smoke": True},
+    {"arch": "deepseek-v2-lite-16b", "shape": "train_4k", "smoke": True,
+     "dtype": "float32",
+     "kernels": ("flash_attention", "flash_attention_bwd", "segment_reduce")},
+    # FM at its published width: train_batch, B = 65,536
+    {"arch": "fm", "shape": "train_batch", "smoke": False,
+     "dtype": "float32",
+     "kernels": ("fm_interaction", "fm_interaction_bwd", "segment_reduce")},
+    # MeshGraphNet 15 x 128 on mesh_batch(256, 256): 65,536 nodes, 391,170
+    # edges (the cell's 391,680 edge slots, the rest to the ghost node)
+    {"arch": "meshgraphnet", "shape": "full_graph_sm", "smoke": False,
+     "cell_shape": {"n_nodes": MGN_SHARDED_SIDE ** 2,
+                    "n_edges": 2 * (3 * MGN_SHARDED_SIDE ** 2
+                                    - 4 * MGN_SHARDED_SIDE + 1),
+                    "d_feat": 4, "n_graphs": 1},
+     "mesh_batch": MGN_SHARDED_SIDE, "dtype": "float32",
+     "kernels": ("segment_reduce",)},
 )
 
 
@@ -3986,52 +4002,67 @@ def _sharded_one_rank(dev, v_result) -> dict:
 
 
 def _sharded_four_ranks(dev) -> dict:
-    """(z2) 4 ranks as 4 processes on the one card over gloo (CUDA
-    tensors), a (2, 2) mesh.  First whether gloo carries each collective
-    DTensor issues, each in processes of its own (``lm_sharded.probe``);
-    where it carries them all, one train step of each of SHARDED_JOBS
-    against the one-device step, the ranks' peaks against the dry run's
-    prediction and their collectives against its count.  Where it refuses
-    one, the step is not run: the refusal and the dry run's prediction of
-    the step are printed, and the multi-rank check is the CPU tests'."""
+    """(z2) 4 ranks as 4 processes on the one card, a (2, 2) mesh, over
+    ``gloo_host`` (``dist/host_group.py``).  First the record of plain
+    gloo on CUDA tensors (``lm_sharded.probe``, each collective in
+    processes of its own, until the first refusal); then the dry run's
+    prediction of each of SHARDED_JOBS on a fake (2, 2) world, and one
+    world of gloo_host ranks: the four probes, then one train step of
+    each job against the one-device step, the ranks' peaks against the
+    prediction, their collectives against its count and their kernels'
+    launches."""
+    from repro_torch.dist import host_group
+    from repro_torch.kernels import _build
     from repro_torch.launch import lm_sharded
 
+    _build.build(_build.KERNELS)   # the ranks load them, none compiles
     t0 = time.perf_counter()
-    carried = lm_sharded.probe(4, "cuda", "gloo", timeout_s=120,
+    refused = lm_sharded.probe(4, "cuda", "gloo", timeout_s=120,
                                until_refused=True)
-    print(f"(z2) gloo on CUDA tensors, 4 ranks on one card: {carried} "
-          f"({time.perf_counter() - t0:.1f} s)")
-    out = {"gloo_cuda": carried}
-    for job in SHARDED_JOBS:
-        job = dict(job, mesh=(2, 2), axes=("data", "model"), grads=True)
+    print(f"(z2) plain gloo on CUDA tensors, 4 ranks on one card: "
+          f"{refused} ({time.perf_counter() - t0:.1f} s)")
+    jobs = [dict(job, mesh=(2, 2), axes=("data", "model"), grads=True)
+            for job in SHARDED_JOBS]
+    preds = []
+    for job in jobs:
         t0 = time.perf_counter()
         pred = lm_sharded.predict(job, 4)
-        pred_s = time.perf_counter() - t0
+        preds.append(pred)
+        print(f"(z2) {job['arch']}: the dry run's rank 0 on a fake (2, 2) "
+              f"world: peak {pred['peak_bytes']} B, collectives "
+              f"{pred['collectives']} ({pred['collective_bytes']} B) "
+              f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    world = lm_sharded.run_all(jobs, 4, device="cuda",
+                               backend=host_group.BACKEND, probe=True,
+                               timeout_s=600)
+    run_s = time.perf_counter() - t0
+    print(f"(z2) {host_group.BACKEND}, 4 ranks on one card: probes "
+          f"{world['probes']}; the spawn, probes and {len(jobs)} steps "
+          f"{run_s:.1f} s")
+    if world["probes"] != {k: True for k in lm_sharded.PROBES}:
+        raise AssertionError(f"(z2) {host_group.BACKEND} does not carry "
+                             f"every probe: {world['probes']}")
+    out = {"gloo_cuda": refused, "gloo_host": world["probes"],
+           "run_s": run_s}
+    for job, pred, res in zip(jobs, preds, world["jobs"]):
         tag = f"(z2) {job['arch']}"
-        print(f"{tag}: the dry run's rank 0 on a fake (2, 2) world: peak "
-              f"{pred['peak_bytes']} B, collectives {pred['collectives']} "
-              f"({pred['collective_bytes']} B) ({pred_s:.1f} s)")
-        out[job["arch"]] = {"predicted_peak_bytes": pred["peak_bytes"],
-                            "predicted_collectives": pred["collectives"]}
-        if set(carried) != set(lm_sharded.PROBES) or \
-                not all(v is True for v in carried.values()):
-            continue
-        res = lm_sharded.run(job, 4, device="cuda", backend="gloo",
-                             timeout_s=240)
-        run_s = time.perf_counter() - t0 - pred_s
         a = res[0]["against_one_device"]
-        dtype = "float32" if job["smoke"] else "bfloat16"
+        dtype = job["dtype"]
         loss_tol, grad_tol = SHARDED_GATES[dtype]
         ratios = [r["peak_bytes"] / pred["peak_bytes"] for r in res]
-        print(f"{tag} ({dtype}): loss {a['loss']:.7g} against the "
-              f"one-device {a['one_device_loss']:.7g} (relative "
-              f"{a['loss_rel']:.3g}, gate {loss_tol}); gradients' largest "
-              f"leaf relative L2 {a['grad_rel_l2_max']:.3g} (gate "
-              f"{grad_tol}); step {res[0]['step_s']:.2f} s; the spawn "
-              f"and step {run_s:.1f} s")
+        launches = [{k: r["launches"].get(k, 0) for k in job["kernels"]}
+                    for r in res]
+        print(f"{tag} ({dtype}), 4 ranks on one card, host-staged "
+              f"collectives: loss {a['loss']:.7g} against the one-device "
+              f"{a['one_device_loss']:.7g} (relative {a['loss_rel']:.3g}, "
+              f"gate {loss_tol}); gradients' largest leaf relative L2 "
+              f"{a['grad_rel_l2_max']:.3g} (gate {grad_tol}); step "
+              f"{res[0]['step_s']:.2f} s")
         print(f"{tag} peaks {[r['peak_bytes'] for r in res]} B (ratios to "
               f"the prediction {', '.join(f'{x:.4f}' for x in ratios)}); "
-              f"collectives {[r['collectives'] for r in res]}")
+              f"collectives {[r['collectives'] for r in res]}; launches by "
+              f"rank {launches}")
         if not (a["loss_rel"] <= loss_tol and a["grad_rel_l2_max"] <=
                 grad_tol):
             raise AssertionError(f"{tag} against one device: {a}")
@@ -4041,12 +4072,18 @@ def _sharded_four_ranks(dev) -> dict:
         if any(r["collectives"] != pred["collectives"] for r in res):
             raise AssertionError(f"{tag} collectives differ from the dry "
                                  "run's")
-        out[job["arch"]].update(
-            dtype=dtype, loss_rel=a["loss_rel"],
-            grad_rel_l2_max=a["grad_rel_l2_max"],
-            peak_bytes=[r["peak_bytes"] for r in res], peak_ratio=ratios,
-            collectives=res[0]["collectives"], launches=res[0]["launches"],
-            regions=res[0]["regions"], step_s=res[0]["step_s"])
+        if not all(all(n.values()) for n in launches):
+            raise AssertionError(f"{tag} a rank launched none of a kernel: "
+                                 f"{launches}")
+        out[job["arch"]] = {
+            "dtype": dtype, "loss_rel": a["loss_rel"],
+            "grad_rel_l2_max": a["grad_rel_l2_max"],
+            "predicted_peak_bytes": pred["peak_bytes"],
+            "peak_bytes": [r["peak_bytes"] for r in res], "peak_ratio": ratios,
+            "collectives": res[0]["collectives"],
+            "predicted_collectives": pred["collectives"],
+            "launches_by_rank": launches, "regions": res[0]["regions"],
+            "step_s": res[0]["step_s"]}
     return out
 
 
@@ -4076,9 +4113,9 @@ def _zero_head_flash(dev) -> dict:
 
 
 def phase_sharded(tp, dev, v_result=None) -> dict:
-    """(z) the LM cells as sharded programs on a DeviceMesh: one rank on
-    NCCL bit for bit, four gloo ranks on the card against one device and
-    the dry run, a zero-head shard."""
+    """(z) the sharded cells on a DeviceMesh: one LM rank on NCCL bit for
+    bit, four gloo_host ranks on the card (the LM, FM and GNN cells)
+    against one device and the dry run, a zero-head shard."""
     import gc
 
     import torch
@@ -4370,6 +4407,10 @@ def main(argv=None) -> int:
         flash["sharded"] = dict(sharded, z3=z["z3"])
         flash_bwd["sharded"] = sharded
         segment["sharded"] = sharded
+        for e_ in entries:
+            if e_["name"] in ("fm_interaction", "fm_interaction_bwd"):
+                e_["sharded_4_ranks"] = [
+                    n[e_["name"]] for n in z["z2"]["fm"]["launches_by_rank"]]
     if "z4" in run:
         z4 = timed("z4", phase_sharded_fm_gnn, tp, dev)
         print(f"(z4) on {smi}", flush=True)

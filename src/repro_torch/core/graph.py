@@ -383,3 +383,27 @@ def graph_to_host(g: Graph) -> tuple[int, np.ndarray, np.ndarray, np.ndarray]:
     keep = src < dst
     return (n, np.stack([src[keep], dst[keep]], axis=1), w[keep],
             g.vwgt[:n].cpu().numpy())
+
+
+def validate_host(g: Graph) -> None:
+    """Structural invariants of one graph, checked on the host (tests):
+    raises ``AssertionError`` where one fails."""
+    n, m = int(g.n), int(g.m)
+    xadj, adjncy, adjwgt, esrc = (a.cpu().numpy() for a in (
+        g.xadj, g.adjncy, g.adjwgt, g.esrc))
+    assert xadj[0] == 0 and xadj[n] == m
+    assert np.all(np.diff(xadj[: n + 1]) >= 0)
+    assert np.all(xadj[n:] == m)
+    assert np.all(adjncy[:m] >= 0) and np.all(adjncy[:m] < n)
+    assert np.all(adjwgt[:m] > 0)
+    assert np.all(adjwgt[m:] == 0)
+    # esrc consistent with xadj
+    expect_src = np.repeat(np.arange(n), np.diff(xadj[: n + 1]))
+    assert np.array_equal(esrc[:m], expect_src)
+    # no self loops
+    assert np.all(adjncy[:m] != esrc[:m])
+    # symmetric with equal weights
+    fwd = {(int(u), int(v)): int(w)
+           for u, v, w in zip(esrc[:m], adjncy[:m], adjwgt[:m])}
+    for (u, v), w in fwd.items():
+        assert fwd.get((v, u)) == w, f"asymmetric edge {(u, v)}"

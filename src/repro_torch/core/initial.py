@@ -101,6 +101,13 @@ def voronoi_partition(g: Graph, k: int, seeds: torch.Tensor) -> torch.Tensor:
     return _voronoi_grow(g, spread_seeds(g, k, seeds), k)
 
 
+def initial_partition(g: Graph, k: int, seed=0,
+                      method: str = "voronoi") -> torch.Tensor:
+    """(n_max,) int32 seeded initial partition (``(B, n_max)`` on a stacked
+    bucket): the row of :func:`initial_partition_batch` for ``seed``."""
+    return initial_partition_batch(g, k, [int(seed)], method)[..., 0, :]
+
+
 def initial_partition_batch(g: Graph, k: int, seeds,
                             method: str = "voronoi") -> torch.Tensor:
     """(T, n_max) int32 batch of seeded initial partitions; (B, T, n_max)

@@ -1,4 +1,4 @@
-"""Partition quality metrics: cutsize, part sizes, imbalance.
+"""Partition quality metrics: cutsize, part sizes, imbalance, boundary.
 
 Counterpart of ``repro.core.metrics``.  ``parts`` may carry leading batch
 dimensions (a lane axis, a trial axis): every function reduces over the
@@ -11,6 +11,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.graph import Graph, take, trial_axis
+
+GHOST = -1  # sentinel meaning "use part id k for padding vertices"
+
+
+def ghost_part(k: int) -> int:
+    """Padding vertices live in part ``k`` (the ghost part)."""
+    return k
 
 
 def cutsize(g: Graph, parts: torch.Tensor) -> torch.Tensor:
@@ -48,6 +55,14 @@ def delta_part_sizes(g: Graph, sizes, parts_old, move, dest, k: int):
     return sizes + d[..., :k]
 
 
+def delta_cutsize(g: Graph, cut, parts_old, parts_new) -> torch.Tensor:
+    """Cutsize after a move list: recomputed from the post-move parts, as
+    the reference does (``cut`` and ``parts_old`` are accepted for its
+    signature)."""
+    del cut, parts_old
+    return cutsize(g, parts_new).int()
+
+
 def size_limit(total_w: torch.Tensor, k: int, lam: float) -> torch.Tensor:
     """Max allowed part weight: floor((1+lam) * W / k), in float32."""
     return torch.floor((1.0 + lam) * total_w.float() / k).int()
@@ -61,3 +76,13 @@ def imbalance(sizes: torch.Tensor, total_w: torch.Tensor, k: int) -> torch.Tenso
 
 def is_balanced(sizes, total_w, k: int, lam: float) -> torch.Tensor:
     return sizes.max(-1).values <= size_limit(total_w, k, lam)
+
+
+def boundary_mask(g: Graph, parts: torch.Tensor) -> torch.Tensor:
+    """(..., N) bool: the vertex has a neighbour in a different part."""
+    diff = (take(parts, g.esrc) != take(parts, g.adjncy)) & \
+        (trial_axis(g.adjwgt, parts.dim()) > 0)
+    src = trial_axis(g.esrc, parts.dim()).long().expand(diff.shape)
+    cnt = torch.zeros(parts.shape, dtype=torch.int32, device=parts.device)
+    cnt.scatter_add_(-1, src, diff.int())
+    return (cnt > 0) & trial_axis(g.vertex_mask(), parts.dim())

@@ -345,16 +345,32 @@ def _passes(arch, shape_name: str, mb) -> int:
     return getattr(arch.config, "n_layers", 1) * runs * passes
 
 
-def _tasks(archs, shape, meshes, smoke) -> list[tuple]:
+def _existing(out_dir: str, mesh_name: str, arch_id: str,
+              shape_name: str) -> bool:
+    """Whether ``out_dir`` holds the cell's record with status ok or
+    skipped (``--skip-existing``: an error is counted again)."""
+    path = os.path.join(out_dir, mesh_name, f"{arch_id}__{shape_name}.json")
+    if not os.path.exists(path):
+        return False
+    with open(path) as f:
+        return json.load(f).get("status") in ("ok", "skipped")
+
+
+def _tasks(archs, shape, meshes, smoke, skip_in: str | None = None) -> list:
     """(arch, shape, meshes) groups: a cell's meshes with one microbatch
     count, the most passes (:func:`_passes`) first, so that a pool of
-    workers ends together."""
+    workers ends together.  With ``skip_in`` (an output directory), the
+    meshes whose record it already holds are left out."""
     out = []
     for arch_id in archs:
         arch = _arch(arch_id, smoke)
         for name in (list(arch.shapes) if shape == "all" else [shape]):
             groups: dict = {}
             for mesh_name in meshes:
+                if skip_in and _existing(skip_in, mesh_name, arch_id, name):
+                    print(f"[skip-existing] {mesh_name} {arch_id} {name}",
+                          flush=True)
+                    continue
                 groups.setdefault(microbatches(arch, name, mesh_name),
                                   []).append(mesh_name)
             out += [(-_passes(arch, name, mb), arch_id, name, g)
@@ -392,9 +408,13 @@ def main(argv=None) -> int:
                     help="the smoke configs and shapes (a test's size)")
     ap.add_argument("--workers", type=int, default=1,
                     help="cells counted at once, one process each")
+    ap.add_argument("--skip-existing", action="store_true",
+                    help="leave out the cells whose record --out already "
+                         "holds with status ok or skipped")
     args = ap.parse_args(argv)
     archs = list(ARCH_IDS) if args.arch == "all" else [args.arch]
-    tasks = _tasks(archs, args.shape, MESHES[args.mesh], args.smoke)
+    tasks = _tasks(archs, args.shape, MESHES[args.mesh], args.smoke,
+                   args.out if args.skip_existing else None)
     t0 = time.perf_counter()
     recs = []
 

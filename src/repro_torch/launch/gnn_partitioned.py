@@ -33,8 +33,8 @@ parameter gradients are summed over ranks before AdamW; back-propagating
 the all-reduced loss on every rank would give D times that.
 
 Backends are chosen explicitly (:func:`init_rank`): NCCL on the card, gloo
-on the CPU, and gloo on the card where the caller names it (NCCL refuses two
-ranks on one GPU).  Implemented for meshgraphnet, as in the reference.
+on the CPU, and gloo or ``gloo_host`` (``dist/host_group.py``) on the card
+where the caller names it (NCCL refuses two ranks on one GPU).  Implemented for meshgraphnet, as in the reference.
 """
 from __future__ import annotations
 
@@ -278,8 +278,12 @@ def init_rank(rank: int, world: int, port: int, device, backend=None,
     """Initialise the default group for this rank over
     ``tcp://localhost:<port>``.  ``backend`` None takes NCCL for a CUDA
     device and gloo for the CPU; NCCL with more ranks than cards raises
-    (name gloo to put several ranks on one card).  Rank 0 prints the
-    choice.  Returns the backend."""
+    (name ``dist/host_group.BACKEND``, ``gloo_host``, to put several ranks
+    on one card: it stages every collective through host memory).  Only a
+    caller that names ``gloo_host`` gets it: nothing here picks it or falls
+    back to it.  Rank 0 prints the choice.  Returns the backend."""
+    from repro_torch.dist import host_group
+
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -291,7 +295,11 @@ def init_rank(rank: int, world: int, port: int, device, backend=None,
         if world > torch.cuda.device_count():
             raise ValueError(
                 f"NCCL refuses two ranks on one GPU ({world} ranks, "
-                f"{torch.cuda.device_count()} cards): name backend='gloo'")
+                f"{torch.cuda.device_count()} cards): name "
+                f"backend='{host_group.BACKEND}' (collectives staged "
+                "through host memory)")
+    if backend == host_group.BACKEND:
+        host_group.register()
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(
@@ -300,8 +308,9 @@ def init_rank(rank: int, world: int, port: int, device, backend=None,
     if rank == 0:
         how = "named by the caller" if named else \
             f"the default for {device.type}"
-        if backend == "gloo" and device.type == "cuda":
-            how += "; gloo copies CUDA tensors through host memory"
+        if backend in ("gloo", host_group.BACKEND) and \
+                device.type == "cuda":
+            how += f"; {backend} copies CUDA tensors through host memory"
         log(f"[gnn_partitioned] {world} rank(s) on {device.type}, backend "
             f"{backend} ({how})", flush=True)
     return backend
@@ -638,8 +647,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default, needs a card) or cpu")
     ap.add_argument("--backend", default=None,
-                    help="nccl or gloo (default: nccl on cuda, gloo on "
-                         "the CPU; several ranks on one card need gloo)")
+                    help="nccl, gloo or gloo_host (default: nccl on "
+                         "cuda, gloo on the CPU; several ranks on one "
+                         "card need gloo_host)")
     args = ap.parse_args(argv)
 
     import tempfile

@@ -17,11 +17,16 @@ inputs out by the cell's ``in_specs`` (``steps.sharded_args``) and runs
 ``steps.sharded_step`` once under ``CommDebugMode``; every rank returns
 its collectives by kind, its regions (``dist/regions.py``), its kernels'
 launches, the bytes of its argument shards, its step time and, on the
-card, its peak memory.  :func:`predict` is the dry run's count of the same
-step, and :func:`probe` checks which collectives a backend carries.
+card, its peak memory; :func:`run_all` runs jobs one after another in one
+world of ranks.  :func:`predict` is the dry run's count of the same step,
+and :func:`probe` checks which collectives a backend carries.
 Backends are chosen as ``launch/gnn_partitioned.init_rank`` chooses them:
-gloo on the CPU, NCCL on a card (one rank a card), gloo where named
-(several ranks on one card).
+gloo on the CPU, NCCL on a card (one rank a card), and only where named
+``gloo_host`` (``dist/host_group.py``: several ranks on one card, every
+collective staged through host memory) or gloo.
+
+    PYTHONPATH=src python -m repro_torch.launch.lm_sharded --arch fm \\
+        --shape train_batch --mesh 2 2 --device cuda --backend gloo_host
 """
 from __future__ import annotations
 
@@ -59,11 +64,15 @@ def local_bytes(args) -> int:
 
 def registry_cell(arch_id: str, shape_name: str, device, mesh,
                   smoke: bool = True, tuning: dict | None = None, params=None,
-                  config: dict | None = None, shape: dict | None = None):
+                  config: dict | None = None, shape: dict | None = None,
+                  mesh_batch: int | None = None):
     """``steps.build_cell`` of a registry arch on ``mesh`` (None: one
     device); ``config`` replaces fields of the arch's config (its smoke
     config with ``smoke``), ``shape`` fields of the cell's shape, and
-    ``params`` (numpy, the reference's layout) its parameters."""
+    ``params`` (numpy, the reference's layout) its parameters.  A GNN
+    cell's batch with ``mesh_batch`` is :func:`with_mesh_batch` of that
+    side (on real tensors; a fake cell keeps its zero batch of the same
+    shapes)."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import steps
     from repro_torch.models import convert
@@ -81,8 +90,35 @@ def registry_cell(arch_id: str, shape_name: str, device, mesh,
     if params is not None:
         params = {"lm": convert.lm_params, "recsys": convert.fm_params,
                   "gnn": convert.gnn_params}[arch.family](params, device)
-    return steps.build_cell(arch, shape_name, device, params=params,
+    cell = steps.build_cell(arch, shape_name, device, params=params,
                             tuning=tuning, mesh=mesh)
+    if mesh_batch and not steps._fake():
+        cell = with_mesh_batch(cell, mesh_batch)
+    return cell
+
+
+def with_mesh_batch(cell, side: int):
+    """A MeshGraphNet cell whose batch is ``data/synthetic.mesh_batch(side,
+    side)``: its nodes fill the cell's, its edges the first of the cell's
+    edge slots, the rest of which point at the ghost node N."""
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps
+
+    b = {k: v for k, v in cell.args[2].items() if k != "plan"}
+    dev = b["pos"].device
+    data = synthetic.mesh_batch(side, side, seed=0, device=dev)
+    g = data["graph"]
+    n, e = b["pos"].shape[0], b["senders"].shape[0]
+    if g.node_feat.shape != b["node_feat"].shape or g.senders.shape[0] > e:
+        raise ValueError(f"mesh_batch({side}, {side}) does not fit the "
+                         f"cell's {n} nodes and {e} edges")
+    ghost = torch.full((e - g.senders.shape[0],), n, dtype=torch.int32,
+                       device=dev)
+    b.update(node_feat=g.node_feat, pos=g.pos, graph_id=g.graph_id,
+             target=data["target"], senders=torch.cat([g.senders, ghost]),
+             receivers=torch.cat([g.receivers, ghost]))
+    return cell._replace(args=cell.args[:2] + (
+        steps.with_edge_plan(b, cell.meta["n_graphs"]),))
 
 
 def grads_of(cell, args):
@@ -110,7 +146,7 @@ def against_one_device(job: dict, device, loss: float, grads) -> dict:
     cell = registry_cell(job["arch"], job["shape"], device, None,
                          job.get("smoke", True), job.get("tuning"),
                          job.get("params"), job.get("config"),
-                         job.get("cell_shape"))
+                         job.get("cell_shape"), job.get("mesh_batch"))
     l1, g1 = grads_of(cell, cell.args)
     rel = {_path_str(p): _rel_l2(g, w) for (p, w), g in zip(
         tree.flatten_with_path(g1), tree.leaves(grads))}
@@ -143,13 +179,28 @@ def predict(job: dict, world: int) -> dict:
             "collective_bytes": rec["collectives"]["total_bytes"]}
 
 
+def warm_blas(device) -> None:
+    """Run a process's first products on ``device``, forward and backward:
+    each thread's first product allocates cuBLAS's workspace for its
+    handle (32 MiB on an H100 with torch 2.11; the backward runs on
+    autograd's own thread, so a step takes two), held for the process's
+    life, through the caching allocator.  The dry run does not count
+    them, so a rank takes them before its step's peak is measured, as a
+    process that has trained before does."""
+    for dt in (torch.float32, torch.bfloat16):
+        a = torch.ones((64, 64), dtype=dt, device=device,
+                       requires_grad=True)
+        torch.addmm(a[0], a, a.T).sum().backward()
+
+
 def rank_job(rank: int, world: int, device, job: dict) -> dict:
     """One rank of a sharded registry cell (for
     ``gnn_partitioned.spawn_ranks``): one step under ``CommDebugMode``.
 
     ``job``: ``arch``, ``shape``, ``mesh`` (its shape) and ``axes``;
     optional ``smoke`` (default True), ``tuning``, ``config``,
-    ``cell_shape``, ``params`` (numpy, the reference's layout) and
+    ``cell_shape``, ``mesh_batch`` (a GNN batch's mesh side,
+    :func:`with_mesh_batch`), ``params`` (numpy, the reference's layout) and
     ``grads`` (a train cell's loss and gradient at its inputs, gathered;
     rank 0 holds them against the one-device cell's,
     :func:`against_one_device`)."""
@@ -170,12 +221,13 @@ def rank_job(rank: int, world: int, device, job: dict) -> dict:
     cell = registry_cell(job["arch"], job["shape"], device, mesh,
                          job.get("smoke", True), job.get("tuning"),
                          job.get("params"), job.get("config"),
-                         job.get("cell_shape"))
+                         job.get("cell_shape"), job.get("mesh_batch"))
     args = steps.sharded_args(cell, mesh)
     step = steps.sharded_step(cell, mesh)
     cell = cell._replace(args=())     # only this rank's blocks stay
     out = {"rank": rank, "arg_bytes": local_bytes(args)}
     if device.type == "cuda":
+        warm_blas(device)
         synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
         # bytes held besides the arguments' blocks (as chip_smoke (y))
@@ -256,13 +308,27 @@ def probe(world: int, device="cuda", backend=None,
     return out
 
 
-def run(job: dict, world: int, device="cpu", backend=None,
-        timeout_s: float = 600.0) -> list[dict]:
-    """:func:`rank_job` on ``world`` spawned ranks; the results by rank."""
+def world_job(rank: int, world: int, device, jobs, probe: bool) -> dict:
+    """One rank of :func:`run_all`: with ``probe`` the redistributions of
+    every kind of ``PROBES``, then :func:`rank_job` of each of ``jobs``."""
+    return {"probes": {k: probe_job(rank, world, device, k)["equal"]
+                       for k in PROBES} if probe else None,
+            "jobs": [rank_job(rank, world, device, j) for j in jobs]}
+
+
+def run_all(jobs, world: int, device="cpu", backend=None,
+            probe: bool = False, timeout_s: float = 600.0) -> dict:
+    """``jobs`` one after another in one world of ``world`` spawned ranks
+    (one spawn; with ``probe``, :func:`probe_job` of each kind first):
+    {"probes": kind -> whether every rank's came back equal (None without
+    ``probe``), "jobs": each job's results by rank}."""
     from repro_torch.launch.gnn_partitioned import spawn_ranks
 
-    return spawn_ranks(rank_job, world, (job,), device=device, backend=backend,
-                       timeout_s=timeout_s)
+    res = spawn_ranks(world_job, world, (list(jobs), probe), device=device,
+                      backend=backend, timeout_s=timeout_s)
+    return {"probes": {k: all(r["probes"][k] for r in res) for k in PROBES}
+            if probe else None,
+            "jobs": [[r["jobs"][i] for r in res] for i in range(len(jobs))]}
 
 
 def main(argv=None) -> int:
@@ -276,7 +342,10 @@ def main(argv=None) -> int:
                     help="the arch's smoke config and shapes")
     ap.add_argument("--zero1", action="store_true")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--backend", default=None)
+    ap.add_argument("--backend", default=None,
+                    help="nccl, gloo or gloo_host (default: nccl on cuda, "
+                         "gloo on the CPU; several ranks on one card need "
+                         "gloo_host)")
     ap.add_argument("--probe", action="store_true",
                     help="only check which collectives the backend carries "
                          "(each in processes of its own)")
@@ -291,7 +360,7 @@ def main(argv=None) -> int:
            "axes": axes, "smoke": args.smoke,
            "tuning": {"zero1": True} if args.zero1 else None}
     world = int(np.prod(args.mesh))
-    for r in run(job, world, args.device, args.backend):
+    for r in run_all([job], world, args.device, args.backend)["jobs"][0]:
         print(json.dumps(r, default=str), flush=True)
     return 0
 

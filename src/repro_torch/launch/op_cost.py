@@ -46,7 +46,11 @@ decomposition, are not the device's and are not counted
 collective of ``torch.distributed._functional_collectives`` is counted by
 kind under the reference's names (``KINDS``), with the bytes of its
 result, as the reference's ``parse_collectives`` counts the result type
-of each collective op; it adds no flops and no device-memory bytes.
+of each collective op; it adds no flops and no device-memory bytes.  A
+shard-to-shard redistribution is one all-to-all, as a card's mesh issues it
+(``_dtensor.shard_dim_alltoall``): on a host mesh DTensor would run an
+all-gather and a chunk instead (gloo has no all-to-all), so the count runs
+the card's op there too (:func:`_card_alltoall`).
 """
 from __future__ import annotations
 
@@ -103,7 +107,9 @@ COLLECTIVES = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
                "all_to_all_single": "all-to-all",
                "all_reduce_coalesced": "all-reduce",
                "all_gather_into_tensor_coalesced": "all-gather",
-               "reduce_scatter_tensor_coalesced": "reduce-scatter"}
+               "reduce_scatter_tensor_coalesced": "reduce-scatter",
+               # DTensor's shard-to-shard redistribution on a card's mesh
+               "shard_dim_alltoall": "all-to-all"}
 KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
          "collective-permute")
 
@@ -219,7 +225,8 @@ class OpCost(TorchDispatchMode):
             return out
         if func.namespace == "prim":  # a fake tensor's device query
             return out
-        if func.namespace in ("_c10d_functional", "c10d_functional"):
+        if func.namespace in ("_c10d_functional", "c10d_functional",
+                              "_dtensor"):
             kind = COLLECTIVES.get(func._overloadpacket.__name__)
             if kind is not None:
                 self.collectives[kind]["count"] += 1
@@ -314,6 +321,29 @@ def _propagation_uncounted(mode: OpCost):
             setattr(cls, name, orig)
 
 
+@contextlib.contextmanager
+def _card_alltoall():
+    """Within it, DTensor's shard-to-shard redistribution on a host
+    (``cpu``) mesh issues the all-to-all it issues on a card's mesh
+    (``torch.ops._dtensor.shard_dim_alltoall``), not its host fallback of an
+    all-gather and a chunk: the count is of what a card's mesh runs."""
+    from torch.distributed.tensor import placement_types
+
+    orig = placement_types.shard_dim_alltoall
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        if mesh.device_type != "cpu":
+            return orig(input, gather_dim, shard_dim, mesh, mesh_dim)
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+
+    placement_types.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = orig
+
+
 def analyze_step(fn, *args, track_memory: bool = False,
                  per_device: bool = False) -> dict:
     """``fn(*args)`` run once under :class:`OpCost`: {"flops",
@@ -327,6 +357,8 @@ def analyze_step(fn, *args, track_memory: bool = False,
     if track_memory:
         mode.track(args)
     with (_propagation_uncounted(mode) if per_device
-          else contextlib.nullcontext()), mode:
+          else contextlib.nullcontext()), \
+            (_card_alltoall() if per_device else contextlib.nullcontext()), \
+            mode:
         fn(*args)
     return mode.result()

@@ -410,3 +410,62 @@ def fm_gnn_world(rank: int, world: int, device, job: dict) -> dict:
     out["regions"] = dict(regions.region_calls)
     out["collectives"] = lm_sharded.collective_counts(comm)
     return out
+
+
+def host_group_world(rank: int, world: int, device, job: dict) -> dict:
+    """The group of the world (``job["backend"]``) on CPU tensors: with
+    ``job["forms"]``, each collective form it carries against the values
+    it must give, a form it does not carry (send), and the four
+    redistributions of ``lm_sharded.PROBES``; then one step of the FM
+    ``train_batch`` smoke cell on a (2, 2) mesh (rank 0 returns its
+    outputs as numpy)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import lm_sharded
+    from repro_torch.launch.mesh import compat_make_mesh
+
+    torch.set_num_threads(1)   # four ranks beside the test workers
+    out = {"backend": dist.get_backend()}
+    if job.get("forms"):
+        x = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * rank
+        every = torch.cat([torch.arange(6, dtype=torch.float32).reshape(2, 3)
+                           + 10 * r for r in range(world)])
+        got = {}
+        g = torch.empty(2 * world, 3)
+        dist.all_gather_into_tensor(g, x)
+        got["all_gather_into_tensor"] = torch.equal(g, every)
+        parts = [torch.empty(2, 3) for _ in range(world)]
+        dist.all_gather(parts, x)
+        got["all_gather"] = torch.equal(torch.cat(parts), every)
+        rs = torch.empty(2, 3)
+        dist.reduce_scatter_tensor(rs, every + rank)
+        got["reduce_scatter_tensor"] = torch.equal(
+            rs, world * every[2 * rank:2 * rank + 2] + sum(range(world)))
+        # rank r sends r + 1 rows to every rank: uneven splits
+        a = torch.full((world * (rank + 1),), float(rank))
+        b = torch.empty(sum(r + 1 for r in range(world)))
+        dist.all_to_all_single(b, a, [r + 1 for r in range(world)],
+                               [rank + 1] * world)
+        got["all_to_all_single"] = torch.equal(b, torch.cat(
+            [torch.full((r + 1,), float(r)) for r in range(world)]))
+        s = x.clone()
+        dist.all_reduce(s)
+        got["all_reduce"] = torch.equal(s, every.view(world, 2, 3).sum(0))
+        c = x.clone()
+        dist.broadcast(c, 1)
+        got["broadcast"] = torch.equal(c, every[2:4])
+        dist.barrier()
+        try:
+            dist.send(x, (rank + 1) % world)
+            got["send_raises"] = False
+        except NotImplementedError:
+            got["send_raises"] = True
+        out["forms"] = got
+        out["probes"] = {k: lm_sharded.probe_job(rank, world, device,
+                                                 k)["equal"]
+                         for k in lm_sharded.PROBES}
+    mesh = compat_make_mesh((2, 2), ("data", "model"))
+    res = run_cell(model_cell("fm", "train_batch", mesh), mesh)
+    if rank == 0:
+        out["fm"] = res
+    return out
