@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.graph import (Graph, csr_from_edge_runs,
                                     from_numpy_arrays, take)
 from repro_torch.core.u32 import i32, mul32, u32
@@ -77,15 +78,17 @@ def heavy_edge_matching(g: Graph, rounds: int = 8, seed: int = 0) -> torch.Tenso
     match = torch.where(g.vertex_mask(), -1, vid)
     em = g.edge_mask()
     for r in range(rounds):
-        unmatched = match < 0
-        elig = em & take(unmatched, g.esrc) & take(unmatched, g.adjncy)
-        cand, has = _seg_pick_dst(elig, g.adjwgt, g.adjncy, g.esrc, n_max,
-                                  _wrap(seed * 1000003 + r))
-        cand = torch.where(has & unmatched, cand, -1)
-        # mutual handshake
-        cand_of_cand = torch.where(cand >= 0,
-                                   take(cand, cand.clamp(0, n_max - 1)), -2)
-        match = torch.where((cand >= 0) & (cand_of_cand == vid), cand, match)
+        with trace.span("jet.coarsen.hem.round"):
+            unmatched = match < 0
+            elig = em & take(unmatched, g.esrc) & take(unmatched, g.adjncy)
+            cand, has = _seg_pick_dst(elig, g.adjwgt, g.adjncy, g.esrc,
+                                      n_max, _wrap(seed * 1000003 + r))
+            cand = torch.where(has & unmatched, cand, -1)
+            # mutual handshake
+            cand_of_cand = torch.where(
+                cand >= 0, take(cand, cand.clamp(0, n_max - 1)), -2)
+            match = torch.where((cand >= 0) & (cand_of_cand == vid), cand,
+                                match)
     return match
 
 
@@ -230,19 +233,19 @@ def coarsen_once(g: Graph, twohop_threshold: float = 0.25,
     is on ``g``'s device; the repack in between is host numpy.
     """
     match = heavy_edge_matching(g, seed=seed)
-    n = int(g.n)
-    unmatched = int(((match < 0) & g.vertex_mask()).sum())
+    n = trace.read("coarsen.n", g.n.item)
+    unmatched = trace.read("coarsen.unmatched",
+                           ((match < 0) & g.vertex_mask()).sum().item)
     # float32 on purpose, as the reference: the same trigger as coarsen_level
     frac = np.float32(unmatched) / np.float32(max(n, 1))
     if frac > np.float32(twohop_threshold):
         match = twohop_matching(g, match, mm_max_degree, seed)
     cmap, nc_dev = coarse_map(g, match)
     cu_run, cv_run, w_run, _, n_runs_dev, vwgt_c = contract_edges(g, cmap)
-    nc, n_runs = torch.stack([nc_dev, n_runs_dev]).tolist()
-    cu = cu_run[:n_runs].cpu().numpy()
-    cv = cv_run[:n_runs].cpu().numpy()
-    w = w_run[:n_runs].cpu().numpy()
-    vw = vwgt_c[:nc].cpu().numpy()
+    nc, n_runs = trace.read("coarsen.sizes",
+                            torch.stack([nc_dev, n_runs_dev]).tolist)
+    cu, cv, w, vw = (trace.read("coarsen.repack", x.cpu).numpy() for x in (
+        cu_run[:n_runs], cv_run[:n_runs], w_run[:n_runs], vwgt_c[:nc]))
     n_max_c = _round_up(max(nc, 1))
     m_max_c = _round_up(max(n_runs, 1))
     xadj = np.zeros(n_max_c + 1, dtype=np.int64)
@@ -277,7 +280,7 @@ def coarsen_level(g: Graph, seed: int = 0, twohop_threshold: float = 0.25,
     unmatched = ((match < 0) & g.vertex_mask()).sum(-1, dtype=torch.int32)
     frac = unmatched.float() / torch.clamp(g.n, min=1).float()
     trigger = frac > twohop_threshold
-    if bool(trigger.any()):
+    if trace.read("coarsen.twohop", trigger.any().item):
         match = torch.where(trigger.unsqueeze(-1),
                             twohop_matching(g, match, mm_max_degree, seed),
                             match)
@@ -290,8 +293,8 @@ def coarsen_level(g: Graph, seed: int = 0, twohop_threshold: float = 0.25,
 
 def _lane_stats(g: Graph) -> np.ndarray:
     """(..., 3) int64 (n, m, max_degree) per lane — one host read."""
-    return torch.stack([g.n, g.m, g.degrees().amax(-1).int()], -1) \
-        .cpu().numpy().astype(np.int64)
+    st = torch.stack([g.n, g.m, g.degrees().amax(-1).int()], -1)
+    return trace.read("coarsen.stats", st.cpu).numpy().astype(np.int64)
 
 
 def _fetch_stats(g: Graph) -> dict:
@@ -420,9 +423,10 @@ def multilevel_coarsen_fleet(
         active = ~dead & (n > coarse_target)
         if not active.any():
             break
-        gc, cmap = coarsen_level(gb, seed + lvl, twohop_threshold,
-                                 mm_max_degree)
-        stc = _lane_stats(gc)
+        with trace.span("jet.coarsen.level"):
+            gc, cmap = coarsen_level(gb, seed + lvl, twohop_threshold,
+                                     mm_max_degree)
+            stc = _lane_stats(gc)
         stalled = stc[:, 0] > stall_ratio * n
         success = active & ~stalled
         dead |= active & stalled
@@ -432,9 +436,10 @@ def multilevel_coarsen_fleet(
         new_m = np.where(success, stc[:, 1], m)
         new_md = np.where(success, stc[:, 2], md)
         cap = select_capacity(schedule, int(new_n.max()), int(new_m.max()))
-        gb2, cmap = _freeze_rebucket_fleet(
-            gc, cmap, gb, torch.from_numpy(success).to(gb.device),
-            n_max=cap[0], m_max=cap[1])
+        success_dev = trace.read(
+            "fleet.success", lambda: torch.from_numpy(success).to(gb.device))
+        gb2, cmap = _freeze_rebucket_fleet(gc, cmap, gb, success_dev,
+                                           n_max=cap[0], m_max=cap[1])
         raw.append((gb, cmap, {"n": n, "m": m, "max_degree": md,
                                "n_max": n_max, "m_max": m_max}))
         depth += success
@@ -509,7 +514,8 @@ def multilevel_coarsen(
     for lvl in range(max_levels):
         if stats["n"] <= coarse_target:
             break
-        gc, cmap, stats_c = step(cur, lvl)
+        with trace.span("jet.coarsen.level"):
+            gc, cmap, stats_c = step(cur, lvl)
         if stats_c["n"] > stall_ratio * stats["n"]:  # stalled
             break
         levels.append(CoarsenLevel(graph=cur, cmap=cmap, stats=stats))

@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import metrics
 from repro_torch.core.graph import Graph, take, trial_axis
 from repro_torch.core.u32 import MASK, u32
@@ -344,23 +345,28 @@ def apply_moves(g: Graph, state: ConnState, parts_old: torch.Tensor,
     Bit-exact against :func:`rebuild_state` of the post-move parts.
     """
     _check_backend(backend)
-    parts_new = torch.where(move, dest, parts_old)
-    upd = {"sizes": metrics.delta_part_sizes(g, state.sizes, parts_old, move,
-                                             dest, k),
-           "cut": metrics.cutsize(g, parts_new),  # one-pass recompute
-           "moves_applied": state.moves_applied + 1}
-    if backend == "dense":
-        upd["mat"] = update_conn_matrix(state.mat, g, parts_old, move, dest, k)
-    elif backend == "sorted":
-        hit = trial_axis(g.edge_mask(), move.dim()) & take(move, g.adjncy)
-        upd["edge_dst_part"] = torch.where(hit, take(dest, g.adjncy),
-                                           state.edge_dst_part).int()
-    else:
-        upd["ell_parts"] = jg.update_nbr_parts(state.ell_nbr, state.ell_parts,
-                                               move, dest, k)
+    with trace.span("jet.apply.sizes"):
+        parts_new = torch.where(move, dest, parts_old)
+        upd = {"sizes": metrics.delta_part_sizes(g, state.sizes, parts_old,
+                                                 move, dest, k),
+               "cut": metrics.cutsize(g, parts_new),  # one-pass recompute
+               "moves_applied": state.moves_applied + 1}
+    with trace.span("jet.apply.conn"):
+        if backend == "dense":
+            upd["mat"] = update_conn_matrix(state.mat, g, parts_old, move,
+                                            dest, k)
+        elif backend == "sorted":
+            hit = trial_axis(g.edge_mask(), move.dim()) & take(move,
+                                                               g.adjncy)
+            upd["edge_dst_part"] = torch.where(hit, take(dest, g.adjncy),
+                                               state.edge_dst_part).int()
+        else:
+            upd["ell_parts"] = jg.update_nbr_parts(
+                state.ell_nbr, state.ell_parts, move, dest, k)
     return state._replace(**upd)
 
 
+@trace.spanned("jet.queries")
 def state_queries(g: Graph, state: ConnState, parts: torch.Tensor, k: int,
                   backend: str) -> ConnQueries:
     """Jetlp queries from the maintained state — no rebuild, no part gather."""
@@ -419,6 +425,7 @@ def _rs_from_runs(g: Graph, runs, valid_parts: torch.Tensor, k: int):
     return s[..., :g.n_max], cnt[..., :g.n_max]
 
 
+@trace.spanned("jet.rebalance.queries")
 def rw_queries(g: Graph, state: ConnState, k: int, valid_parts: torch.Tensor,
                backend: str):
     """Jetrw: best valid-destination part per vertex: (best_conn, best_part, has)."""
@@ -434,6 +441,7 @@ def rw_queries(g: Graph, state: ConnState, k: int, valid_parts: torch.Tensor,
     return best_conn.clamp(min=0), torch.where(has, best_part, k), has
 
 
+@trace.spanned("jet.rebalance.queries")
 def rs_queries(g: Graph, state: ConnState, k: int, valid_parts: torch.Tensor,
                backend: str):
     """Jetrs: sum and count of connectivity over adjacent valid parts."""

@@ -23,6 +23,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import trace
+
 
 def _fit(a: torch.Tensor, size: int, edge: bool = False) -> torch.Tensor:
     """Slice or pad the last axis to a static length (zeros, or its last
@@ -168,7 +170,8 @@ def bucket_graphs(
 
     if not graphs:
         raise ValueError("bucket_graphs needs at least one graph")
-    sizes = torch.stack([torch.stack([g.n, g.m]) for g in graphs]).tolist()
+    sizes = trace.read("fleet.sizes", torch.stack([
+        torch.stack([g.n, g.m]) for g in graphs]).tolist)
     if schedule is None:
         n_top = _round_up(max(max(n for n, _ in sizes), 1), align)
         m_top = _round_up(max(max(m for _, m in sizes), 1), align)

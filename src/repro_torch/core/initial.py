@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import connectivity as cn
 from repro_torch.core.graph import Graph, trial_axis
 from repro_torch.core.u32 import MASK, mul32, u32
@@ -81,7 +82,7 @@ def _voronoi_grow(g: Graph, seeds: torch.Tensor, k: int) -> torch.Tensor:
     it = torch.zeros(rows, dtype=torch.int32, device=g.device)
     while True:
         active = changed & (it < g.n_max)
-        if not bool(active.any()):
+        if not trace.read("initial.grow", active.any().item):
             break
         unassigned = (parts == k) & vmask
         masked = cn.conn_matrix(g, parts, k + 1)[..., :k]
@@ -119,4 +120,4 @@ def initial_partition_batch(g: Graph, k: int, seeds,
         raise ValueError(f"seeds must be 1-D (one per trial), got "
                          f"{tuple(seeds.shape)}")
     fn = random_partition if method == "random" else voronoi_partition
-    return fn(g, k, seeds.to(g.device))
+    return fn(g, k, trace.read("initial.seeds", lambda: seeds.to(g.device)))

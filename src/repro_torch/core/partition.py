@@ -29,6 +29,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import coarsen as co
 from repro_torch.core import connectivity as cn
 from repro_torch.core import graph as gr
@@ -95,6 +96,7 @@ def _resolve_trial_seeds(cfg: PartitionConfig) -> tuple:
     return seeds
 
 
+@trace.spanned("jet.level")
 def uncoarsen_level(fine: Graph, cmap, parts_batch, phi, *, k, lam, c, backend,
                     patience, max_iter, b_max, variant, rebuild_every,
                     max_degree=None, active=None):
@@ -109,7 +111,8 @@ def uncoarsen_level(fine: Graph, cmap, parts_batch, phi, *, k, lam, c, backend,
     """
     parts = co.project_partition(cmap, parts_batch)
     parts = torch.where(fine.vertex_mask().unsqueeze(-2), parts, k).int()
-    conn0 = cn.build_state(fine, parts, k, backend, max_degree=max_degree)
+    with trace.span("jet.level.build"):
+        conn0 = cn.build_state(fine, parts, k, backend, max_degree=max_degree)
     return refine._refine_loop(
         fine, parts, conn0, phi, k=k, lam=lam, c=c, backend=backend,
         patience=patience, max_iter=max_iter, b_max=b_max, variant=variant,
@@ -136,7 +139,19 @@ def partition(g: Graph, cfg: PartitionConfig, device=None) -> PartitionResult:
     trials on the shared hierarchy and returns the best; ``trial_cuts`` /
     ``trial_balanced`` / ``trial_parts`` expose the whole batch.  Trial
     ``t`` equals a ``trials=1`` run with ``trial_seeds=(seeds[t],)``.
+
+    Besides the phase seconds, ``times`` holds the call's record
+    (:mod:`repro_torch.trace`): ``host_reads``, the refinement loop's
+    ``refine_wait_s`` (the host blocked at its per-iteration read) and
+    ``refine_issue_s`` (the rest of its host time), and ``jet_gain_host_s``.
     """
+    with trace.call() as rec, trace.span("jet.partition"):
+        res = _partition(g, cfg, device)
+        res.times.update(rec.times())
+    return res
+
+
+def _partition(g: Graph, cfg: PartitionConfig, device) -> PartitionResult:
     device = resolve_device(device)
     g = g.to(device)
     k = cfg.k
@@ -147,19 +162,21 @@ def partition(g: Graph, cfg: PartitionConfig, device=None) -> PartitionResult:
         cn.check_sorted(g, k)
 
     t0 = time.perf_counter()
-    levels = co.multilevel_coarsen(
-        g, coarse_target=cfg.coarse_target, max_levels=cfg.max_levels,
-        stall_ratio=cfg.stall_ratio, seed=cfg.seed, mode=cfg.coarsen_mode,
-        bucket_ratio=cfg.bucket_ratio, bucket_safety=cfg.bucket_safety,
-        bucket_align=cfg.bucket_align,
-    )
-    synchronize(device)
+    with trace.span("jet.coarsen"):
+        levels = co.multilevel_coarsen(
+            g, coarse_target=cfg.coarse_target, max_levels=cfg.max_levels,
+            stall_ratio=cfg.stall_ratio, seed=cfg.seed,
+            mode=cfg.coarsen_mode, bucket_ratio=cfg.bucket_ratio,
+            bucket_safety=cfg.bucket_safety, bucket_align=cfg.bucket_align,
+        )
+        synchronize(device)
     t_coarsen = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    parts_b = initial.initial_partition_batch(levels[-1].graph, k, seeds,
-                                              method=cfg.init_method)
-    synchronize(device)
+    with trace.span("jet.initial"):
+        parts_b = initial.initial_partition_batch(
+            levels[-1].graph, k, seeds, method=cfg.init_method)
+        synchronize(device)
     t_init = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -189,19 +206,28 @@ def partition(g: Graph, cfg: PartitionConfig, device=None) -> PartitionResult:
         raise RuntimeError(f"finest parts {tuple(parts_b.shape)} do not match "
                            f"the graph's capacity {g.n_max}")
 
-    fstats = stats_per_level[-1]
-    best_idx = int(_best_trial(fstats["best_balanced"], fstats["best_cost"],
-                               fstats["best_maxsize"]))
-    parts = parts_b[best_idx]
-    sizes = metrics.part_sizes(g, parts, k)
-    W = g.total_vweight()
-    cut = int(metrics.cutsize(g, parts))
-    imb = float(metrics.imbalance(sizes, W, k))
-    balanced = bool(metrics.is_balanced(sizes, W, k, cfg.lam))
-    names = list(fstats)
-    per_level = torch.stack([torch.stack([s[kk].int() for kk in names])
-                             for s in stats_per_level]).tolist()  # (L, S, T)
-    t_uncoarsen = time.perf_counter() - t0
+    with trace.span("jet.epilogue"):
+        fstats = stats_per_level[-1]
+        best_idx = trace.read("epilogue.best", _best_trial(
+            fstats["best_balanced"], fstats["best_cost"],
+            fstats["best_maxsize"]).item)
+        parts = parts_b[best_idx]
+        sizes = metrics.part_sizes(g, parts, k)
+        W = g.total_vweight()
+        cut = trace.read("epilogue.cut", metrics.cutsize(g, parts).item)
+        imb = trace.read("epilogue.imbalance",
+                         metrics.imbalance(sizes, W, k).item)
+        balanced = trace.read("epilogue.balanced",
+                              metrics.is_balanced(sizes, W, k, cfg.lam).item)
+        names = list(fstats)
+        per_level = torch.stack([torch.stack([s[kk].int() for kk in names])
+                                 for s in stats_per_level])  # (L, S, T)
+        per_level = trace.read("epilogue.stats", per_level.tolist)
+        t_uncoarsen = time.perf_counter() - t0
+        trial_cuts = trace.read("epilogue.trial_cuts",
+                                fstats["best_cost"].tolist)
+        trial_balanced = trace.read("epilogue.trial_balanced",
+                                    fstats["best_balanced"].tolist)
 
     level_stats = []
     for meta, vals in zip(meta_per_level, per_level):
@@ -226,8 +252,8 @@ def partition(g: Graph, cfg: PartitionConfig, device=None) -> PartitionResult:
         config=cfg,
         trials=trials,
         best_trial=best_idx,
-        trial_cuts=fstats["best_cost"].tolist(),
-        trial_balanced=fstats["best_balanced"].tolist(),
+        trial_cuts=trial_cuts,
+        trial_balanced=trial_balanced,
         trial_parts=parts_b,
     )
 
@@ -260,6 +286,11 @@ def fleet_signature_count() -> int:
     "Zero new executables after warmup" means, in the port, that a replay
     runs no shape signature that warmup did not, so this count stays put."""
     return len(_FLEET_SIGNATURES)
+
+
+# the phases of a fleet call, in its ``times``; ``total_s`` is their sum
+FLEET_PHASES = ("bucket_s", "coarsen_s", "initpart_s", "uncoarsen_s",
+                "fetch_s")
 
 
 @dataclass
@@ -330,9 +361,18 @@ def partition_fleet_stacked(buckets, cfg: PartitionConfig, schedule,
     ``None``) are computed and dropped.  ``parts`` and ``trial_parts`` stay
     on the device at each member's own padding; every other result comes
     back in ONE blocking transfer for the whole fleet, at the end.
+
+    ``times`` holds the phase seconds summed over the buckets, their sum
+    ``total_s``, and the call's record as :func:`partition` gives it.
     """
     if not buckets:
         raise ValueError("partition_fleet_stacked needs at least one bucket")
+    with trace.call(), trace.span("jet.fleet"):
+        return _fleet_stacked(buckets, cfg, schedule, times_extra, device)
+
+
+def _fleet_stacked(buckets, cfg: PartitionConfig, schedule, times_extra,
+                   device) -> FleetResult:
     device = resolve_device(device)
     k = cfg.k
     seeds = _resolve_trial_seeds(cfg)
@@ -349,17 +389,19 @@ def partition_fleet_stacked(buckets, cfg: PartitionConfig, schedule,
         if cfg.backend == "sorted":
             cn.check_sorted(gb, k)
         t0 = time.perf_counter()
-        levels = co.multilevel_coarsen_fleet(
-            gb, schedule, coarse_target=cfg.coarse_target,
-            max_levels=cfg.max_levels, stall_ratio=cfg.stall_ratio,
-            seed=cfg.seed)
-        synchronize(device)
+        with trace.span("jet.coarsen"):
+            levels = co.multilevel_coarsen_fleet(
+                gb, schedule, coarse_target=cfg.coarse_target,
+                max_levels=cfg.max_levels, stall_ratio=cfg.stall_ratio,
+                seed=cfg.seed)
+            synchronize(device)
         times["coarsen_s"] += time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        parts_bt = initial.initial_partition_batch(
-            levels[-1].graph, k, seeds, method=cfg.init_method)
-        synchronize(device)
+        with trace.span("jet.initial"):
+            parts_bt = initial.initial_partition_batch(
+                levels[-1].graph, k, seeds, method=cfg.init_method)
+            synchronize(device)
         times["initpart_s"] += time.perf_counter() - t0
 
         t0 = time.perf_counter()
@@ -376,12 +418,14 @@ def partition_fleet_stacked(buckets, cfg: PartitionConfig, schedule,
             if cmap is None:
                 cmap = torch.arange(gi.n_max, dtype=torch.int32,
                                     device=device).expand(len(sb.tags), -1)
+            active = trace.read(
+                "fleet.active", lambda: torch.from_numpy(lv.active).to(device))
             parts_bt, stats = uncoarsen_level(
                 gi, cmap, parts_bt, cfg.phi, k=k, lam=cfg.lam, c=c,
                 backend=cfg.backend, patience=cfg.patience,
                 max_iter=cfg.max_iter, b_max=cfg.b_max, variant=cfg.variant,
                 rebuild_every=cfg.rebuild_every, max_degree=max_deg,
-                active=torch.from_numpy(lv.active).to(device))
+                active=active)
             stats_per_level.append(stats)
             meta = {"level": i, "n_max": lv.stats["n_max"],
                     "m_max": lv.stats["m_max"], "n": lv.stats["n"],
@@ -390,11 +434,13 @@ def partition_fleet_stacked(buckets, cfg: PartitionConfig, schedule,
             if max_deg is not None:
                 meta["ell_width"] = max_deg
             metas.append(meta)
-        parts, ep = _fleet_epilogue(levels[0].graph, parts_bt,
-                                    stats_per_level[-1], k=k, lam=cfg.lam)
-        names = list(stats_per_level[-1])
-        ep["stats"] = torch.stack([torch.stack([st[kk].int() for kk in names])
-                                   for st in stats_per_level])  # (L, S, B, T)
+        with trace.span("jet.epilogue"):
+            parts, ep = _fleet_epilogue(levels[0].graph, parts_bt,
+                                        stats_per_level[-1], k=k, lam=cfg.lam)
+            names = list(stats_per_level[-1])
+            ep["stats"] = torch.stack([
+                torch.stack([st[kk].int() for kk in names])
+                for st in stats_per_level])  # (L, S, B, T)
         times["uncoarsen_s"] += time.perf_counter() - t0
         _FLEET_SIGNATURES.update(level_signatures(
             len(sb.tags), trials, metas, k=k, backend=cfg.backend,
@@ -406,9 +452,10 @@ def partition_fleet_stacked(buckets, cfg: PartitionConfig, schedule,
     # the ONE blocking transfer of the whole fleet's results
     t0 = time.perf_counter()
     flat = torch.cat([v.reshape(-1) for p in pending for v in p[3].values()])
-    host = flat.cpu().numpy()
+    host = trace.read("fleet.fetch", flat.cpu).numpy()
     times["fetch_s"] = time.perf_counter() - t0
-    times["total_s"] = sum(times.values())
+    times["total_s"] = sum(times.get(name, 0.0) for name in FLEET_PHASES)
+    times.update(trace.current().times())
 
     results: dict = {}
     off = 0
@@ -471,22 +518,23 @@ def partition_fleet(graphs, cfg: PartitionConfig, schedule=None,
     graphs = list(graphs)
     if not graphs:
         raise ValueError("partition_fleet needs at least one graph")
-    t0 = time.perf_counter()
-    schedule, bucket_map = gr.bucket_graphs(
-        graphs, ratio=cfg.bucket_ratio, safety=cfg.bucket_safety,
-        stall_ratio=cfg.stall_ratio, align=cfg.bucket_align,
-        schedule=schedule)
-    buckets = [gr.StackedBucket(
-        capacity=cap,
-        graph=gr.stack_bucket([graphs[i] for i in bucket_map[cap]], cap),
-        tags=tuple(bucket_map[cap]),
-        orig_n_max=tuple(graphs[i].n_max for i in bucket_map[cap]),
-    ) for cap in sorted(bucket_map, reverse=True)]
-    bucket_s = time.perf_counter() - t0
+    with trace.call():   # the bucketing's read counts in the call's record
+        t0 = time.perf_counter()
+        schedule, bucket_map = gr.bucket_graphs(
+            graphs, ratio=cfg.bucket_ratio, safety=cfg.bucket_safety,
+            stall_ratio=cfg.stall_ratio, align=cfg.bucket_align,
+            schedule=schedule)
+        buckets = [gr.StackedBucket(
+            capacity=cap,
+            graph=gr.stack_bucket([graphs[i] for i in bucket_map[cap]], cap),
+            tags=tuple(bucket_map[cap]),
+            orig_n_max=tuple(graphs[i].n_max for i in bucket_map[cap]),
+        ) for cap in sorted(bucket_map, reverse=True)]
+        bucket_s = time.perf_counter() - t0
 
-    sres = partition_fleet_stacked(buckets, cfg, schedule,
-                                   times_extra={"bucket_s": bucket_s},
-                                   device=device)
+        sres = partition_fleet_stacked(buckets, cfg, schedule,
+                                       times_extra={"bucket_s": bucket_s},
+                                       device=device)
     results: list = [None] * len(graphs)
     for tag, r in sres.results.items():
         results[tag] = r

@@ -12,6 +12,7 @@ import functools
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import connectivity as cn
 from repro_torch.core import metrics
 from repro_torch.core.graph import Graph, trial_axis
@@ -44,10 +45,12 @@ _XLA_LOG2_FLOOR = (
 
 @functools.cache
 def _log2_table(device: torch.device):
-    return torch.tensor(_XLA_LOG2_FLOOR, dtype=torch.int32,
-                        device=device).T.contiguous()
+    # an upload, once a process and device: a synchronizing point
+    return trace.read("rebalance.log2_table", lambda: torch.tensor(
+        _XLA_LOG2_FLOOR, dtype=torch.int32, device=device)).T.contiguous()
 
 
+@trace.spanned("jet.rebalance.slot")
 def slot(loss: torch.Tensor) -> torch.Tensor:
     """Eq 4.5: log2 bucketing of the loss value.
 
@@ -87,6 +90,7 @@ def _rank_to_part(valid_parts: torch.Tensor, k: int):
     return part_of_rank, v.sum(-1, dtype=torch.int32)
 
 
+@trace.spanned("jet.rebalance.evict")
 def _evict_prefix(g: Graph, parts, k, movable, slots, sizes, limit):
     """Stable sort by (part, slot); pick per-part prefixes with weight just
     covering size - limit (Alg 4.3 lines 19-28, Eq 4.4).
@@ -116,6 +120,7 @@ def _evict_prefix(g: Graph, parts, k, movable, slots, sizes, limit):
     return evict, order, evict_s, ecum_before
 
 
+@trace.spanned("jet.rebalance.common")
 def _common(g: Graph, conn: cn.ConnState, parts, k, lam):
     sizes = conn.sizes
     nd = parts.dim()
@@ -140,6 +145,7 @@ def _state_and_queries(g, parts, k, backend, conn, queries):
     return conn, queries
 
 
+@trace.spanned("jet.rebalance.weak")
 def jetrw_moves(g: Graph, parts, k: int, lam: float, backend: str = "dense",
                 conn: cn.ConnState | None = None, queries=None):
     """Weak rebalancing (Alg 4.3): evictees go to their best valid part."""
@@ -147,24 +153,26 @@ def jetrw_moves(g: Graph, parts, k: int, lam: float, backend: str = "dense",
     sizes, limit, over, valid, sigma, opt, movable = _common(g, conn, parts,
                                                              k, lam)
     best_conn, best_part, has = cn.rw_queries(g, conn, k, valid, backend)
-    # fallback destination: pseudo-random valid part (deterministic hash)
-    part_of_rank, num_valid = _rank_to_part(valid, k)
-    vid = torch.arange(g.n_max, device=parts.device)
-    r = (mul32(vid, 2654435761) >> 8).int()
-    r = r % torch.clamp(num_valid, min=1)[..., None]
-    rand_part = part_of_rank.gather(
-        -1, r.clamp(0, k - 1).long().expand(*parts.shape[:-1], -1))
-    # last resort (no valid part at all): smallest part
-    argmin_part = torch.argmin(sizes, dim=-1).int()[..., None]
-    dest = torch.where(has, best_part,
-                       torch.where(num_valid[..., None] > 0, rand_part,
-                                   argmin_part))
+    with trace.span("jet.rebalance.dest"):
+        # fallback destination: pseudo-random valid part (deterministic hash)
+        part_of_rank, num_valid = _rank_to_part(valid, k)
+        vid = torch.arange(g.n_max, device=parts.device)
+        r = (mul32(vid, 2654435761) >> 8).int()
+        r = r % torch.clamp(num_valid, min=1)[..., None]
+        rand_part = part_of_rank.gather(
+            -1, r.clamp(0, k - 1).long().expand(*parts.shape[:-1], -1))
+        # last resort (no valid part at all): smallest part
+        argmin_part = torch.argmin(sizes, dim=-1).int()[..., None]
+        dest = torch.where(has, best_part,
+                           torch.where(num_valid[..., None] > 0, rand_part,
+                                       argmin_part))
     loss = q.conn_self - best_conn
     evict, _, _, _ = _evict_prefix(g, parts, k, movable, slot(loss), sizes,
                                    limit)
     return evict, dest.int()
 
 
+@trace.spanned("jet.rebalance.strong")
 def jetrs_moves(g: Graph, parts, k: int, lam: float, backend: str = "dense",
                 conn: cn.ConnState | None = None, queries=None):
     """Strong rebalancing: cookie-cutter destination overlay (one shot)."""
@@ -176,14 +184,15 @@ def jetrs_moves(g: Graph, parts, k: int, lam: float, backend: str = "dense",
     loss = q.conn_self - mean_conn  # Eq 4.10 (sign per Alg 4.3 convention)
     evict, order, _, ecum_before = _evict_prefix(g, parts, k, movable,
                                                  slot(loss), sizes, limit)
-    # capacities of valid destinations up to sigma
-    cap = torch.where(valid, torch.clamp(sigma - sizes, min=0), 0)
-    ccap = torch.cumsum(cap, -1).int()
-    total_cap = ccap[..., -1:]
-    x = torch.minimum(ecum_before, torch.clamp(total_cap - 1, min=0))
-    dest_s = torch.searchsorted(ccap, x, right=True).clamp(0, k - 1).int()
-    # safety: if total capacity is zero, send to smallest part
-    argmin_part = torch.argmin(sizes, dim=-1).int()[..., None]
-    dest_s = torch.where(total_cap > 0, dest_s, argmin_part)
-    dest = torch.zeros_like(dest_s).scatter_(-1, order, dest_s)
+    with trace.span("jet.rebalance.dest"):
+        # capacities of valid destinations up to sigma
+        cap = torch.where(valid, torch.clamp(sigma - sizes, min=0), 0)
+        ccap = torch.cumsum(cap, -1).int()
+        total_cap = ccap[..., -1:]
+        x = torch.minimum(ecum_before, torch.clamp(total_cap - 1, min=0))
+        dest_s = torch.searchsorted(ccap, x, right=True).clamp(0, k - 1).int()
+        # safety: if total capacity is zero, send to smallest part
+        argmin_part = torch.argmin(sizes, dim=-1).int()[..., None]
+        dest_s = torch.where(total_cap > 0, dest_s, argmin_part)
+        dest = torch.zeros_like(dest_s).scatter_(-1, order, dest_s)
     return evict, dest

@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import connectivity as cn
 from repro_torch.core import metrics
 from repro_torch.core import rebalance as rb
@@ -36,6 +37,7 @@ def variant_flags(variant: str):
     }[variant]
 
 
+@trace.spanned("jet.lp")
 def jetlp_moves(g: Graph, parts, k: int, lock, c: float,
                 backend: str = "dense", variant: str = "full",
                 queries: cn.ConnQueries | None = None):
@@ -63,16 +65,20 @@ def jetlp_moves(g: Graph, parts, k: int, lock, c: float,
         return X, Pd
 
     # Afterburner: per-edge approximate next state.
-    u, v, w = g.adjncy, g.esrc, trial_axis(g.adjwgt, nd)
-    Fu, Fv = take(F, u), take(F, v)
-    # ord(u) < ord(v): u moves "first" iff higher priority gain, tie -> smaller id
-    u_first = take(X, u) & ((Fu > Fv) | ((Fu == Fv) & trial_axis(u < v, nd)))
-    pu = torch.where(u_first, take(Pd, u), take(parts, u))
-    contrib = w * ((pu == take(Pd, v)).int() - (pu == take(parts, v)).int())
-    contrib = torch.where(trial_axis(g.edge_mask(), nd) & take(X, v),
-                          contrib, 0)
-    vi = trial_axis(v.long(), nd).expand(contrib.shape)
-    F2 = torch.zeros_like(F).scatter_add_(-1, vi, contrib)
+    with trace.span("jet.lp.afterburner"):
+        u, v, w = g.adjncy, g.esrc, trial_axis(g.adjwgt, nd)
+        Fu, Fv = take(F, u), take(F, v)
+        # ord(u) < ord(v): u moves "first" iff higher priority gain, tie ->
+        # smaller id
+        u_first = take(X, u) & ((Fu > Fv)
+                                | ((Fu == Fv) & trial_axis(u < v, nd)))
+        pu = torch.where(u_first, take(Pd, u), take(parts, u))
+        contrib = w * ((pu == take(Pd, v)).int()
+                       - (pu == take(parts, v)).int())
+        contrib = torch.where(trial_axis(g.edge_mask(), nd) & take(X, v),
+                              contrib, 0)
+        vi = trial_axis(v.long(), nd).expand(contrib.shape)
+        F2 = torch.zeros_like(F).scatter_add_(-1, vi, contrib)
     return X & (F2 >= 0), Pd
 
 
@@ -154,7 +160,13 @@ def _refine_loop(g: Graph, parts0, conn0: cn.ConnState, phi, *, k: int,
     ``active`` (a fleet lane's refine flag, (B,) bool) makes every row of
     an inactive lane's loop condition false at iteration 0, so its
     (identity-projected) partition passes through untouched.
+
+    Adds the loop's host wall time, and the part of it the host spent
+    blocked in reads (the per-iteration read of its flags), to the call's
+    record.
     """
+    rec = trace.current()
+    t_loop, wait0 = trace.clock(), rec.read_ns
     dev = parts0.device
     rows = parts0.shape[:-1]
     # per lane, against the (..., T) rows
@@ -175,77 +187,90 @@ def _refine_loop(g: Graph, parts0, conn0: cn.ConnState, phi, *, k: int,
     one = torch.ones(rows, dtype=torch.int32, device=dev)
 
     while True:
-        active = (st.since_best < patience) & (st.it < max_iter) & lane_ok
-        balanced = st.conn.sizes.amax(-1) <= limit
-        weak = st.weak_count < b_max
-        any_act, any_lp, any_weak, any_strong = torch.stack([
-            active.any(), (active & balanced).any(),
-            (active & ~balanced & weak).any(),
-            (active & ~balanced & ~weak).any(),
-        ]).tolist()
+        with trace.span("jet.flags"):
+            active = (st.since_best < patience) & (st.it < max_iter) & lane_ok
+            balanced = st.conn.sizes.amax(-1) <= limit
+            weak = st.weak_count < b_max
+            # the loop's one host read: the host waits here for the device
+            any_act, any_lp, any_weak, any_strong = trace.read(
+                "refine.iter", torch.stack([
+                    active.any(), (active & balanced).any(),
+                    (active & ~balanced & weak).any(),
+                    (active & ~balanced & ~weak).any(),
+                ]).tolist)
         if not any_act:
             break
-        # one ConnQueries per iteration, shared by all three move kinds
-        q = cn.state_queries(g, st.conn, st.parts, k, backend)
+        with trace.span("jet.iter"):
+            # one ConnQueries per iteration, shared by all three move kinds
+            q = cn.state_queries(g, st.conn, st.parts, k, backend)
 
-        def do_lp():
-            move, dest = jetlp_moves(g, st.parts, k, st.lock, c, backend,
-                                     variant, queries=q)
-            return move, dest, move, zeros(), one, zeros()
+            def do_lp():
+                move, dest = jetlp_moves(g, st.parts, k, st.lock, c,
+                                         backend, variant, queries=q)
+                return move, dest, move, zeros(), one, zeros()
 
-        def do_rb():
-            move, dest = _cond(
-                weak, any_weak, any_strong,
-                lambda: rb.jetrw_moves(g, st.parts, k, lam, backend,
-                                       conn=st.conn, queries=q),
-                lambda: rb.jetrs_moves(g, st.parts, k, lam, backend,
-                                       conn=st.conn, queries=q))
-            # rebalancing does not touch lock state (paper §4.1.3)
-            return move, dest, st.lock, st.weak_count + 1, zeros(), one
+            def do_rb():
+                move, dest = _cond(
+                    weak, any_weak, any_strong,
+                    lambda: rb.jetrw_moves(g, st.parts, k, lam, backend,
+                                           conn=st.conn, queries=q),
+                    lambda: rb.jetrs_moves(g, st.parts, k, lam, backend,
+                                           conn=st.conn, queries=q))
+                # rebalancing does not touch lock state (paper §4.1.3)
+                return move, dest, st.lock, st.weak_count + 1, zeros(), one
 
-        step = _cond(balanced, any_lp, any_weak or any_strong, do_lp, do_rb)
-        move, dest, lock2, weak2, dlp, drb = step
-        parts2 = torch.where(move, dest, st.parts)
+            step = _cond(balanced, any_lp, any_weak or any_strong, do_lp,
+                         do_rb)
+            move, dest, lock2, weak2, dlp, drb = step
 
-        # Alg 4.4 delta update; `rebuild_every` is the full-rebuild hatch.
-        if rebuild_every == 1:
-            conn2 = cn.rebuild_state(g, st.conn, parts2, k, backend)
-        elif rebuild_every == 0:
-            conn2 = cn.apply_moves(g, st.conn, st.parts, move, dest, k,
-                                   backend)
-        else:
-            full = (st.it + 1) % rebuild_every == 0
-            conn2 = _select(
-                full, cn.rebuild_state(g, st.conn, parts2, k, backend),
-                cn.apply_moves(g, st.conn, st.parts, move, dest, k, backend))
+            # Alg 4.4 delta update; `rebuild_every` is the full-rebuild hatch.
+            with trace.span("jet.apply"):
+                parts2 = torch.where(move, dest, st.parts)
+                if rebuild_every == 1:
+                    conn2 = cn.rebuild_state(g, st.conn, parts2, k, backend)
+                elif rebuild_every == 0:
+                    conn2 = cn.apply_moves(g, st.conn, st.parts, move, dest,
+                                           k, backend)
+                else:
+                    full = (st.it + 1) % rebuild_every == 0
+                    conn2 = _select(
+                        full, cn.rebuild_state(g, st.conn, parts2, k, backend),
+                        cn.apply_moves(g, st.conn, st.parts, move, dest, k,
+                                       backend))
 
-        cost2 = conn2.cut
-        max2 = conn2.sizes.amax(-1)
-        bal2 = max2 <= limit
-        # Best tracking (Alg 4.1 lines 16-23, with a balanced partition
-        # always superseding an unbalanced best — DESIGN.md §6).
-        take_bal = bal2 & (~st.best_balanced | (cost2 < st.best_cost))
-        significant = bal2 & (~st.best_balanced
-                              | (cost2.float() < phi * st.best_cost.float()))
-        take_imb = ~bal2 & ~st.best_balanced & (max2 < st.best_maxsize)
-        take_best = take_bal | take_imb
-        reset = significant | take_imb
-        new = RefineState(
-            parts=parts2,
-            conn=conn2,
-            best_parts=_select(take_best, parts2, st.best_parts),
-            best_cost=torch.where(take_best, cost2, st.best_cost),
-            best_maxsize=torch.where(take_best, max2, st.best_maxsize),
-            best_balanced=st.best_balanced | bal2,
-            lock=lock2,
-            since_best=torch.where(reset, 0, st.since_best + 1),
-            weak_count=torch.where(bal2, 0, weak2),
-            it=st.it + 1,
-            lp_iters=st.lp_iters + dlp,
-            rb_iters=st.rb_iters + drb,
-        )
-        st = _select(active, new, st)
+            with trace.span("jet.best"):
+                cost2 = conn2.cut
+                max2 = conn2.sizes.amax(-1)
+                bal2 = max2 <= limit
+                # Best tracking (Alg 4.1 lines 16-23, with a balanced
+                # partition always superseding an unbalanced best —
+                # DESIGN.md §6).
+                take_bal = bal2 & (~st.best_balanced | (cost2 < st.best_cost))
+                significant = bal2 & (
+                    ~st.best_balanced
+                    | (cost2.float() < phi * st.best_cost.float()))
+                take_imb = ~bal2 & ~st.best_balanced & (max2 < st.best_maxsize)
+                take_best = take_bal | take_imb
+                reset = significant | take_imb
+                new = RefineState(
+                    parts=parts2,
+                    conn=conn2,
+                    best_parts=_select(take_best, parts2, st.best_parts),
+                    best_cost=torch.where(take_best, cost2, st.best_cost),
+                    best_maxsize=torch.where(take_best, max2,
+                                             st.best_maxsize),
+                    best_balanced=st.best_balanced | bal2,
+                    lock=lock2,
+                    since_best=torch.where(reset, 0, st.since_best + 1),
+                    weak_count=torch.where(bal2, 0, weak2),
+                    it=st.it + 1,
+                    lp_iters=st.lp_iters + dlp,
+                    rb_iters=st.rb_iters + drb,
+                )
+                st = _select(active, new, st)
 
+    rec.refine_loop_ns += trace.clock() - t_loop
+    rec.refine_wait_ns += rec.read_ns - wait0
     stats = {
         "iterations": st.it,
         "lp_iters": st.lp_iters,

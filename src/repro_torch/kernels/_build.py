@@ -13,7 +13,8 @@ The libraries are the port's only compile that outlives a process, so
 they are its compile cache: :func:`enable_compile_cache` points the
 library directory elsewhere (a directory that several processes share),
 and :func:`cache_stats` counts ``cache_misses`` (``nvcc`` builds) and
-``cache_hits`` (first loads that find the library already on disk).
+``cache_hits`` (first loads that find the library already on disk), and
+sums ``load_s``, the seconds :func:`load` spent building and opening them.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 _KERNELS = Path(__file__).resolve().parent
@@ -40,10 +42,12 @@ build_logs: dict[str, str] = {}
 
 
 class CompileCacheStats:
-    """Hit and miss counts of the kernel-library cache in this process."""
+    """Hit and miss counts of the kernel-library cache in this process, and
+    the seconds spent in :func:`load` (``nvcc`` builds and ``dlopen``)."""
 
     def __init__(self):
         self.counts: dict[str, int] = {}
+        self.load_s = 0.0
 
     def add(self, key: str) -> None:
         self.counts[key] = self.counts.get(key, 0) + 1
@@ -128,10 +132,12 @@ def load(name: str) -> ctypes.CDLL:
     """The kernel's shared library, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
+        t0 = time.perf_counter()
         path = _library(name)
         if path.exists():
             _CACHE_STATS.add("cache_hits")
         else:
             build([name])
         lib = _loaded[name] = ctypes.CDLL(str(path))
+        _CACHE_STATS.load_s += time.perf_counter() - t0
     return lib

@@ -22,6 +22,7 @@ import functools
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.graph import trial_axis
 from repro_torch.kernels import _build, cost, launch_counts, nbytes, op_costs
 from repro_torch.kernels.jet_gain.ref import jet_gain_ref
@@ -181,12 +182,17 @@ def jet_gain_from_parts(nbr_parts, wgt, parts, k: int):
     — the entry point of the stateful ELL backend.
 
     A CPU tensor goes to the plain version, a CUDA tensor to the kernel.
+    The host time from here to the launch's return (the check, the custom
+    op's dispatch, the ctypes launch) adds to the call's record.
     """
+    t0 = trace.clock()
     if nbr_parts.device.type not in ("cuda", "cpu"):
         raise ValueError(f"jet_gain runs on cpu or cuda, not "
                          f"{nbr_parts.device}")
     _check(nbr_parts, wgt, parts)
-    return _op(nbr_parts, wgt, parts, k)
+    out = _op(nbr_parts, wgt, parts, k)
+    trace.current().jet_gain_ns += trace.clock() - t0
+    return out
 
 
 def jet_gain(nbr, wgt, parts, k: int):

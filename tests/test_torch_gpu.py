@@ -166,6 +166,33 @@ def test_sorted_equals_dense_on_card(cuda):
     assert tp.summary(res["sorted"]) == tp.summary(res["dense"])
 
 
+def test_port_reads_equal_sync_debug_count(cuda):
+    """``times["host_reads"]``, the reads the partitioner counts where it
+    makes them, equals CUDA's sync debug mode's count of the same call on
+    both backends the benchmark runs, after a warm call.  Switching the
+    mode on warns once a process itself; that warning is not counted."""
+    import warnings
+
+    from repro_torch.core.partition import PartitionConfig, partition
+    from repro_torch.data import graphs as gen
+
+    for g, backend in ((gen.grid3d(24, 24, 24), "ell"),
+                       (gen.rmat(12), "dense")):
+        g = g.to(cuda)
+        cfg = PartitionConfig(k=16, trials=2, backend=backend)
+        partition(g, cfg)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            del caught[:]
+            try:
+                res = partition(g, cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        synced = sum("synchronizing" in str(w.message) for w in caught)
+        assert res.times["host_reads"] == synced > 0, backend
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("b,f,d", [(1, 1, 1), (257, 39, 10), (4099, 8, 128),
@@ -611,12 +638,15 @@ def test_flash_attention_backward_matches_plain(cuda, shape):
         assert bool((got[0][torch.isneginf(lse_ref)] == 0).all())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.float16])
-def test_fm_interaction_backward_matches_plain(cuda, dtype):
-    """The backward kernel against ``fm_interaction_bwd_ref``: float32
-    within 1e-6 relative L2, 16-bit within one rounding step; two launches
-    bitwise equal; a strided view."""
+def test_fm_interaction_backward_matches_plain(cuda):
+    """The backward kernel against ``fm_interaction_bwd_ref``, in float32,
+    bfloat16 and float16: float32 within 1e-6 relative L2, 16-bit within
+    one rounding step; two launches bitwise equal; a strided view."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        _fm_backward_matches_plain(cuda, dtype)
+
+
+def _fm_backward_matches_plain(cuda, dtype):
     from repro_torch.kernels.fm_interaction.ref import fm_interaction_bwd_ref
 
     for b, f, d in ((1, 0, 10), (257, 1, 1), (4096, 39, 10), (3, 2, 12288)):
